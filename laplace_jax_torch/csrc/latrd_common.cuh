@@ -1,0 +1,291 @@
+// Shared device code of the LATRD panel kernels (latrd.cu, latrd_v4.cu).
+//
+// One panel of blocked Householder tridiagonalization on a stack of K
+// symmetric windows Aw (K, m, m), row-major, for window-relative columns
+// c = off .. off+nb-1 (the contract of laplace_jax_torch/ops/tridiag.py).
+// Each column runs four launches on the caller's stream:
+//
+//   1. k_col    grid (m/64, K): corrected column
+//                 col = Aw[c, :] - U^T W[:, c] - W^T U[:, c]
+//               (rows >= c) and per-block partial sums of col^2 below c;
+//   2. k_house  grid (K): reduce the partials, form the reflector with the
+//               JAX package's sign and trivial-reflector rules, write
+//               d, e, tau and v (row j of U), zero y;
+//   3. matvec   y = Aw v over the trailing rows/columns > c, plus blocks
+//               computing s = U v and t = W v for the j earlier rows
+//               (kernel-specific: latrd.cu reads full rows, latrd_v4.cu the
+//               lower triangle);
+//   4. k_w      grid (m/64, K): w = tau (y - U^T t - W^T s) - tau/2 (w.v) v
+//               with w.v = tau (y.v - 2 s.t), written as row nb+j.
+//
+// Rows and columns at or past nv = n_real - q_base are padding (zero).
+
+#pragma once
+
+#include <cfloat>
+#include <cstddef>
+#include <cuda_runtime.h>
+
+namespace latrd {
+
+constexpr int kBlock = 256;               // threads of every kernel
+constexpr int kWarps = kBlock / 32;
+constexpr int kRows = 64;                 // rows per block in k_col / k_w
+constexpr int kGroups = kBlock / kRows;   // threads sharing one row's q-loop
+
+template <typename T> struct Vec;         // 16-byte vector of T
+template <> struct Vec<float> { using type = float4; static constexpr int n = 4; };
+template <> struct Vec<double> { using type = double2; static constexpr int n = 2; };
+
+__device__ __forceinline__ float vdot(float4 a, float4 b) {
+  return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
+}
+__device__ __forceinline__ double vdot(double2 a, double2 b) {
+  return a.x * b.x + a.y * b.y;
+}
+
+// Rounded products that nvcc may not fuse into an FMA: the trivial-reflector
+// test compares sum(x^2) - alpha^2 with ~0, and an exact alpha^2 inside an
+// FMA would leave the rounding error of sum(x^2) there instead of 0.
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+
+// threshold of the trivial-reflector test (the JAX package's)
+template <typename T> __device__ __forceinline__ T tiny_threshold();
+template <> __device__ __forceinline__ float tiny_threshold<float>() { return FLT_MIN * 1e4f; }
+template <> __device__ __forceinline__ double tiny_threshold<double>() { return 1e-290; }
+
+template <typename T>
+struct Panel {
+  const T* Aw;  // (K, m, m) window
+  T* UW;        // (K, 2nb, m): rows [0, nb) reflectors v_j, [nb, 2nb) w_j
+  T* det;       // (K, 3, nb): d, e, tau
+  T* col;       // (K, m) corrected column
+  T* part;      // (K, m/kRows) partial sums of squares
+  T* y;         // (K, m) trailing matvec
+  T* st;        // (K, 2nb): U v in [0, nb), W v in [nb, 2nb)
+  T* scal;      // (K, 4): tau
+  int K, m, nb, nrb;
+  int q_base, n_real;
+  int nv;       // valid rows/columns of the window
+  int lend;     // nv rounded up to whole 16-byte vectors (<= m)
+};
+
+template <typename T>
+__device__ __forceinline__ T warp_sum(T x) {
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_down_sync(0xffffffffu, x, o);
+  return x;  // the total is in lane 0
+}
+
+// Sum over the block, returned to every thread; sh holds kWarps + 1 values.
+template <typename T>
+__device__ T block_sum(T x, T* sh) {
+  x = warp_sum(x);
+  if ((threadIdx.x & 31) == 0) sh[threadIdx.x >> 5] = x;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    T s = 0;
+    for (int w = 0; w < kWarps; ++w) s += sh[w];
+    sh[kWarps] = s;
+  }
+  __syncthreads();
+  const T r = sh[kWarps];
+  __syncthreads();
+  return r;
+}
+
+// Warp-wide dot product of a[l] and v[l] over l in [l0, lend), 16-byte
+// loads (l0 and lend are multiples of the vector width); lane 0 has it.
+template <typename T>
+__device__ __forceinline__ T warp_dot(const T* a, const T* v, int l0, int lend) {
+  using V = typename Vec<T>::type;
+  constexpr int n = Vec<T>::n;
+  T acc = 0;
+  for (int l = l0 + (threadIdx.x & 31) * n; l < lend; l += 32 * n)
+    acc += vdot(*reinterpret_cast<const V*>(a + l), *reinterpret_cast<const V*>(v + l));
+  return warp_sum(acc);
+}
+
+template <typename T>
+__device__ __forceinline__ int vec_floor(int l) { return (l / Vec<T>::n) * Vec<T>::n; }
+
+template <typename T>
+__global__ void __launch_bounds__(kBlock) k_col(Panel<T> p, int c, int j) {
+  __shared__ T red[kGroups][kRows];
+  __shared__ T sh[kWarps + 1];
+  const int k = blockIdx.y, r = threadIdx.x % kRows, g = threadIdx.x / kRows;
+  const int i = blockIdx.x * kRows + r;
+  const size_t mm = p.m;
+  if ((blockIdx.x + 1) * kRows <= c) {  // every row above the column
+    if (threadIdx.x == 0) p.part[k * p.nrb + blockIdx.x] = 0;
+    return;
+  }
+  const T* U = p.UW + (size_t)k * 2 * p.nb * mm;
+  const T* W = U + (size_t)p.nb * mm;
+  T corr = 0;
+  if (i < p.m && i >= c && i < p.nv)
+    for (int q = g; q < j; q += kGroups)
+      corr += U[q * mm + i] * W[q * mm + c] + W[q * mm + i] * U[q * mm + c];
+  red[g][r] = corr;
+  __syncthreads();
+  T sq = 0;
+  if (g == 0 && i < p.m && i >= c) {
+    T val = 0;
+    if (i < p.nv) {
+      for (int h = 1; h < kGroups; ++h) corr += red[h][r];
+      val = p.Aw[((size_t)k * mm + c) * mm + i] - corr;  // row c == column c
+    }
+    p.col[k * mm + i] = val;
+    if (i > c) sq = mul_rn(val, val);
+  }
+  sq = block_sum(sq, sh);
+  if (threadIdx.x == 0) p.part[k * p.nrb + blockIdx.x] = sq;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kBlock) k_house(Panel<T> p, int c, int j) {
+  __shared__ T sh[kWarps + 1];
+  const int k = blockIdx.x;
+  const size_t mm = p.m;
+  T acc = 0;
+  for (int b = threadIdx.x; b < p.nrb; b += kBlock) acc += p.part[k * p.nrb + b];
+  const T sumsq = block_sum(acc, sh);  // sum of col^2 over rows > c
+  const T* col = p.col + k * mm;
+  const T alpha = c + 1 < p.m ? col[c + 1] : T(0);
+  const T a2 = mul_rn(alpha, alpha);
+  const T xn = sumsq - a2;
+  const T xnorm2 = xn < 0 ? T(0) : xn;  // keeps a NaN
+  const T anorm = sqrt(a2 + xnorm2);
+  const T beta = alpha >= 0 ? -anorm : anorm;
+  const bool trivial = xnorm2 <= tiny_threshold<T>() * anorm * anorm;
+  const T denom = trivial ? T(1) : alpha - beta;
+  const bool ok = c + p.q_base < p.n_real - 2;
+  const T tau = (trivial || !ok) ? T(0) : (beta - alpha) / beta;
+  if (threadIdx.x == 0) {
+    T* det = p.det + (size_t)k * 3 * p.nb;
+    det[j] = col[c];
+    det[p.nb + j] = trivial ? alpha : beta;
+    det[2 * p.nb + j] = tau;
+    p.scal[k * 4] = tau;
+  }
+  T* v = p.UW + ((size_t)k * 2 * p.nb + j) * mm;
+  T* y = p.y + k * mm;
+  for (int i = threadIdx.x; i < p.m; i += kBlock) {
+    T vi = 0;
+    if (ok && i > c) vi = i == c + 1 ? T(1) : col[i] / denom;
+    v[i] = vi;
+    y[i] = 0;
+  }
+}
+
+// One warp per earlier panel row r (the blk-th group of kWarps of the 2j):
+// st[r] = UW[r] . v.
+template <typename T>
+__device__ __forceinline__ void dots_block(const Panel<T>& p, int c, int j, int blk) {
+  const int q = blk * kWarps + (threadIdx.x >> 5);
+  if (q >= 2 * j) return;
+  const int k = blockIdx.y, r = q < j ? q : p.nb + (q - j);
+  const size_t mm = p.m;
+  const T* base = p.UW + (size_t)k * 2 * p.nb * mm;
+  const T s = warp_dot(base + (size_t)r * mm, base + (size_t)j * mm,
+                       vec_floor<T>(c + 1), p.lend);
+  if ((threadIdx.x & 31) == 0) p.st[k * 2 * p.nb + r] = s;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kBlock) k_w(Panel<T> p, int c, int j) {
+  __shared__ T red[kGroups][kRows];
+  __shared__ T sh[kWarps + 1];
+  const int k = blockIdx.y, r = threadIdx.x % kRows, g = threadIdx.x / kRows;
+  const int i = blockIdx.x * kRows + r;
+  const size_t mm = p.m;
+  const T* U = p.UW + (size_t)k * 2 * p.nb * mm;
+  const T* W = U + (size_t)p.nb * mm;
+  const T* v = U + (size_t)j * mm;
+  const T* y = p.y + k * mm;
+  const T* s = p.st + k * 2 * p.nb;  // U v
+  const T* t = s + p.nb;             // W v
+  const T tau = p.scal[k * 4];
+  T acc = 0;
+  for (int l = c + 1 + threadIdx.x; l < p.nv; l += kBlock) acc += y[l] * v[l];
+  const T yv = block_sum(acc, sh);
+  T corr = 0;
+  if (i < p.m && i > c && i < p.nv)
+    for (int q = g; q < j; q += kGroups) corr += U[q * mm + i] * t[q] + W[q * mm + i] * s[q];
+  red[g][r] = corr;
+  __syncthreads();
+  if (g != 0 || i >= p.m) return;
+  T wi = 0;
+  if (i > c && i < p.nv) {
+    for (int h = 1; h < kGroups; ++h) corr += red[h][r];
+    T st = 0;
+    for (int q = 0; q < j; ++q) st += s[q] * t[q];
+    const T wv = tau * (yv - 2 * st);
+    wi = tau * (y[i] - corr) - T(0.5) * tau * wv * v[i];
+  }
+  p.UW[((size_t)k * 2 * p.nb + p.nb + j) * mm + i] = wi;
+}
+
+template <typename T>
+using MatvecLauncher = cudaError_t (*)(const Panel<T>&, int c, int j, cudaStream_t);
+
+// The whole panel: nb columns of four launches each.
+template <typename T>
+cudaError_t run_panel(const void* Aw, void* UW, void* det, void* col, void* part,
+                      void* y, void* st, void* scal, int K, int m, int nb, int off,
+                      int q_base, int n_real, void* stream, MatvecLauncher<T> matvec) {
+  Panel<T> p;
+  p.Aw = static_cast<const T*>(Aw);
+  p.UW = static_cast<T*>(UW);
+  p.det = static_cast<T*>(det);
+  p.col = static_cast<T*>(col);
+  p.part = static_cast<T*>(part);
+  p.y = static_cast<T*>(y);
+  p.st = static_cast<T*>(st);
+  p.scal = static_cast<T*>(scal);
+  p.K = K;
+  p.m = m;
+  p.nb = nb;
+  p.nrb = (m + kRows - 1) / kRows;
+  p.q_base = q_base;
+  p.n_real = n_real;
+  p.nv = n_real - q_base < m ? n_real - q_base : m;
+  p.lend = ((p.nv + Vec<T>::n - 1) / Vec<T>::n) * Vec<T>::n;
+  if (p.lend > m) p.lend = m;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 rows(p.nrb, K);
+  cudaError_t err;
+  for (int j = 0; j < nb; ++j) {
+    const int c = off + j;
+    k_col<T><<<rows, kBlock, 0, s>>>(p, c, j);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    k_house<T><<<K, kBlock, 0, s>>>(p, c, j);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    if ((err = matvec(p, c, j, s)) != cudaSuccess) return err;
+    k_w<T><<<rows, kBlock, 0, s>>>(p, c, j);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+}  // namespace latrd
+
+// The C interface of each library (one per kernel source).
+#define LATRD_EXPORTS(LAUNCHER)                                                     \
+  extern "C" int panel_f32(const void* Aw, void* UW, void* det, void* col,        \
+                           void* part, void* y, void* st, void* scal, int K, int m, \
+                           int nb, int off, int q_base, int n_real, void* stream) { \
+    return (int)latrd::run_panel<float>(Aw, UW, det, col, part, y, st, scal, K, m, \
+                                        nb, off, q_base, n_real, stream,            \
+                                        LAUNCHER<float>);                           \
+  }                                                                                 \
+  extern "C" int panel_f64(const void* Aw, void* UW, void* det, void* col,        \
+                           void* part, void* y, void* st, void* scal, int K, int m, \
+                           int nb, int off, int q_base, int n_real, void* stream) { \
+    return (int)latrd::run_panel<double>(Aw, UW, det, col, part, y, st, scal, K,  \
+                                         m, nb, off, q_base, n_real, stream,        \
+                                         LAUNCHER<double>);                         \
+  }                                                                                 \
+  extern "C" const char* error_string(int e) {                                     \
+    return cudaGetErrorString(static_cast<cudaError_t>(e));                         \
+  }
