@@ -6,19 +6,29 @@
 Phases, each printing one JSON line; any failed check exits non-zero:
 
 1. device  - the card's name and power limit (`nvidia-smi`);
-2. build   - compiles both CUDA kernels from `laplace_jax_torch/csrc/`;
+2. build   - compiles every CUDA kernel from `laplace_jax_torch/csrc/`,
+             one `nvcc` per source, all at once;
 3. kernels - each LATRD panel kernel at a real ResNet-18 factor class
              (v1 at (4, 1152), v4 at (3, 4608), float32) against its plain
              PyTorch version on the same inputs, and the whole
              `eigh_stack_ts` through that kernel against `torch.linalg.eigh`;
-4. reference - a width-8 ResNet-18 KFAC fit in float64 on the card (its
-             576 class runs the v1 kernel) against the same fit on the CPU,
-             where the port decomposes with LAPACK;
+             the syrk kernel at the last-layer GGN shape (1280, 5130)
+             float32 and a ragged (37, 130) float64 against `syrk_plain`;
+4. reference - width-8 ResNet-18 fits in float64 on the card against the
+             same fits on the CPU: all-weights KFAC (its 576 class runs the
+             v1 kernel; LAPACK on the CPU) and last-layer Full (the float64
+             syrk kernel; the einsum on the CPU);
 5. main    - the main path at full width: `KronLaplace` on ResNet-18
              (width 64, 10 classes, 11.16M weights) over 512 CIFAR-10-shaped
              inputs in batches of 128, marglik prior tuning, and the GLM
-             probit predictive on 8 inputs, with both kernels' launch counts
-             read from this run.
+             probit predictive on 8 inputs, with both LATRD kernels' launch
+             counts read from this run;
+6. last_layer - last-layer Laplace on the same network and data: the
+             default `Laplace(net, "classification")` (KronLL, v1 kernel),
+             FullLL (the syrk kernel, 4 launches; its GGN against a float64
+             one; marglik tuning; probit predictive; 100 GLM predictive
+             samples on 128 inputs) and DiagLL (against FullLL's diagonal),
+             each kernel's launches read from its own fit.
 
 Then the kernel summary line, the `nvidia-smi` line, and last
 `{"ok": true, "device": {...}}`. Without a CUDA device, or outside the
@@ -37,6 +47,7 @@ from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+F64_FLOPS = 34e12  # H100 SXM float64 outside the tensor cores
 PANEL_TOL = 1e-4  # float32 panel: max |kernel - plain| / max |plain| per output
 STAGE1_TOL = 3e-5  # stage-1 spectrum: max |eig(T) - eig(A)| / max |eig(A)|
 # (the JAX package's oracle, laplace_jax/ops/latrd_pallas_v4.py:50-51)
@@ -45,6 +56,12 @@ EIG_TOL = 1e-4  # whole float32 solver vs float64 eigvalsh, relative to the
 # run, 3.6e-5 (stage 2's float32 secular solve on that run's tridiagonal;
 # v4's atomics change it from run to run); n * eps32 * ||A|| is 2.7e-4
 RECON_TOL = 1e-4  # ||Q L Q^T - A|| / ||A|| and max |Q^T Q - I| in float32
+# syrk kernel vs syrk_plain, max |kernel - plain| / max |plain|: float32
+# sums up to 1280 products per entry in another order; float64 likewise
+SYRK_TOL = {"float32": 1e-4, "float64": 1e-10}
+SYRK_SHAPES = [((1280, 5130), "float32"), ((37, 130), "float64")]  # main-path shape first
+GGN_TOL = 1e-4  # FullLL float32 H vs the float64 GGN, relative to its largest entry
+DIAG_TOL = 1e-5  # DiagLL H vs diag(FullLL H), relative to its largest entry
 
 KERNELS = [  # (name, module, lib, source, TPU kernel replaced, K, n)
     ("latrd_panel", "latrd", "laplace_jax_torch/csrc/latrd.cu",
@@ -163,56 +180,125 @@ def kernel_phase(name, module, source, replaces, K, n, seed, device):
     return row
 
 
+def syrk_bound_ms(R: int, P: int, itemsize: int, flops_peak: float):
+    """Least time for H = A^T A over the lower half: A read once and H
+    written once, against R P (P + 1) flops."""
+    t_bytes = (R * P + P * P) * itemsize / HBM_BYTES_PER_S
+    t_ops = R * P * (P + 1) / flops_peak
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def syrk_phase(seed, device):
+    """The syrk kernel against `syrk_plain` on the same inputs, at the
+    last-layer GGN shape in float32 and a ragged float64 shape; times at
+    the first."""
+    import torch
+
+    from laplace_jax_torch.ops.syrk import syrk, syrk_plain
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    row = None
+    for (R, P), dt in SYRK_SHAPES:
+        dtype = getattr(torch, dt)
+        A = torch.randn(R, P, generator=gen, device=device, dtype=dtype)
+        got, ref = syrk(A), syrk_plain(A)
+        torch.cuda.synchronize()
+        max_abs_err = float((got - ref).abs().max())
+        rel = max_abs_err / float(ref.abs().max())
+        symmetric = bool(torch.equal(got, got.mT))
+        res = dict(phase="kernel", name="syrk", shape=[R, P], dtype=dt, max_abs_err=max_abs_err,
+                   rel_err=rel, tol=SYRK_TOL[dt], exactly_symmetric=symmetric)
+        check(rel <= SYRK_TOL[dt], f"syrk {dt} {(R, P)}: relative error {rel:.3e} > {SYRK_TOL[dt]}")
+        check(symmetric, f"syrk {dt} {(R, P)}: output is not exactly symmetric")
+        if row is None:
+            bound_ms, bound_by = syrk_bound_ms(R, P, A.element_size(),
+                                               F32_FLOPS if dt == "float32" else F64_FLOPS)
+            res.update(route="cuda", source="laplace_jax_torch/csrc/syrk.cu",
+                       replaces="laplace_jax/ops/syrk.py:37",
+                       ms=cuda_ms(lambda: syrk(A), reps=20),
+                       plain_ms=cuda_ms(lambda: syrk_plain(A), reps=20),
+                       bound_ms=bound_ms, bound_by=bound_by,
+                       library_ms=cuda_ms(lambda: torch.mm(A.mT, A), reps=20),
+                       library_call="torch.mm(A.mT, A), TF32 off")
+            row = res
+        emit(res)
+    return row
+
+
 def reference_phase(seed, device):
-    """A width-8 fit in float64: on the card (the 576 factor class runs the
-    v1 kernel) and on the CPU (LAPACK eigh), same weights and data."""
+    """Width-8 fits in float64: on the card and on the CPU, same weights and
+    data. All-weights KFAC (the 576 factor class runs the v1 kernel on the
+    card, LAPACK eigh on the CPU) and last-layer Full (the float64 syrk
+    kernel on the card, the einsum on the CPU)."""
     import numpy as np
     import torch
 
-    from laplace_jax_torch import KronLaplace
+    from laplace_jax_torch import FullLLLaplace, KronLaplace
     from laplace_jax_torch.models.resnet import ResNet18
     from laplace_jax_torch.ops.latrd import latrd_panel
+    from laplace_jax_torch.ops.syrk import syrk
     from laplace_jax_torch.utils.data import ArrayLoader
 
     rng = np.random.default_rng(seed)
     X = rng.standard_normal((32, 16, 16, 3))
     y = rng.integers(0, 10, 32)
     net = ResNet18(width=8, generator=torch.Generator().manual_seed(seed)).double()
-    out = {}
+    out, syrk0 = {}, syrk.launches
     for dev in ("cpu", device):
         la = KronLaplace(net, "classification", device=dev)
         la.fit(ArrayLoader(X, y, batch_size=16))
+        ll = FullLLLaplace(net, "classification", device=dev)
+        ll.fit(ArrayLoader(X, y, batch_size=16))
         out[str(dev)] = (float(la.log_marginal_likelihood()), la(X[:4]).cpu().numpy(),
-                         la.H._flat_eigs.cpu().numpy())
-    (l_c, p_c, e_c), (l_g, p_g, e_g) = out["cpu"], out[str(device)]
+                         la.H._flat_eigs.cpu().numpy(),
+                         float(ll.log_marginal_likelihood()), ll(X[:4]).cpu().numpy())
+    (l_c, p_c, e_c, fl_c, fp_c), (l_g, p_g, e_g, fl_g, fp_g) = out["cpu"], out[str(device)]
     res = dict(phase="reference", lml_cpu=l_c, lml_gpu=l_g, lml_rel_err=abs(l_g - l_c) / abs(l_c),
                pred_max_err=float(np.abs(p_g - p_c).max()),
                eig_rel_err=float(np.abs(e_g - e_c).max() / np.abs(e_c).max()),
-               v1_launched=latrd_panel.launches > 0)
+               v1_launched=latrd_panel.launches > 0,
+               full_ll_lml_cpu=fl_c, full_ll_lml_gpu=fl_g,
+               full_ll_lml_rel_err=abs(fl_g - fl_c) / abs(fl_c),
+               full_ll_pred_max_err=float(np.abs(fp_g - fp_c).max()),
+               syrk_f64_launches=syrk.launches - syrk0)
     emit(res)
     check(res["v1_launched"], "reference fit did not run the v1 kernel")
     check(res["lml_rel_err"] <= 1e-8, "reference: marglik disagrees with the CPU fit")
     check(res["pred_max_err"] <= 1e-8, "reference: predictive disagrees with the CPU fit")
     check(res["eig_rel_err"] <= 1e-9, "reference: eigenvalues disagree with the CPU fit")
+    check(res["syrk_f64_launches"] == 2, "reference FullLL fit did not run the float64 syrk kernel")
+    check(res["full_ll_lml_rel_err"] <= 1e-8, "reference: FullLL marglik disagrees with the CPU fit")
+    check(res["full_ll_pred_max_err"] <= 1e-8,
+          "reference: FullLL predictive disagrees with the CPU fit")
 
 
-def main_path(seed, device):
+def full_width(seed):
+    """ResNet-18 (width 64, 10 classes) with random weights from `seed`, 512
+    CIFAR-10-shaped inputs with labels in batches of 128, and 128 test
+    inputs."""
     import numpy as np
     import torch
 
-    from laplace_jax_torch import KronLaplace
     from laplace_jax_torch.models.resnet import ResNet18
-    from laplace_jax_torch.ops.latrd import latrd_panel
-    from laplace_jax_torch.ops.latrd_v4 import latrd_panel_v4
-    from laplace_jax_torch.utils import matrix
     from laplace_jax_torch.utils.data import ArrayLoader
 
     rng = np.random.default_rng(seed)
     X = rng.standard_normal((512, 32, 32, 3)).astype(np.float32)
     y = rng.integers(0, 10, size=512)
-    loader = ArrayLoader(X, y, batch_size=128)
+    X_test = rng.standard_normal((128, 32, 32, 3)).astype(np.float32)
     net = ResNet18(width=64, num_classes=10, generator=torch.Generator().manual_seed(seed))
+    return net, ArrayLoader(X, y, batch_size=128), X_test
 
+
+def main_path(seed, device):
+    import torch
+
+    from laplace_jax_torch import KronLaplace
+    from laplace_jax_torch.ops.latrd import latrd_panel
+    from laplace_jax_torch.ops.latrd_v4 import latrd_panel_v4
+    from laplace_jax_torch.utils import matrix
+
+    net, loader, X_test = full_width(seed)
     la = KronLaplace(net, "classification", device=device)
     torch.cuda.reset_peak_memory_stats()
     latrd_panel.launches = latrd_panel_v4.launches = 0
@@ -241,9 +327,8 @@ def main_path(seed, device):
     marglik_s = time.perf_counter() - t0
     pp = float(la.prior_precision[0])
 
-    X_test = rng.standard_normal((8, 32, 32, 3)).astype(np.float32)
     t0 = time.perf_counter()
-    probs = la(X_test)
+    probs = la(X_test[:8])
     torch.cuda.synchronize()
     pred_s = time.perf_counter() - t0
     row_err = float((probs.sum(-1) - 1).abs().max())
@@ -267,6 +352,121 @@ def main_path(seed, device):
           "predictive has the wrong shape or is not finite")
     check(row_err <= 1e-5, f"predictive rows sum to 1 only within {row_err:.3e}")
     return launches
+
+
+def ll_ggn_f64(la, loader):
+    """The last-layer GGN in float64, accumulated with `syrk_plain` and
+    written out apart from the port's backend: for the Dense head with
+    features φ and S S^T the softmax Hessian, the rows M[b, s] are
+    [S[s, b], φ_b ⊗ S[s, b]] (bias block first, input-major kernel)."""
+    import torch
+
+    from laplace_jax_torch.ops.syrk import syrk_plain
+
+    head = la.model.module.get_submodule(".".join(la.last_layer_path))
+    W, bias = head.weight.detach().double(), head.bias.detach().double()
+    H = None
+    for X, _ in loader:
+        with torch.no_grad():
+            phi = la.model.apply_with_features(la._tensor(X), la.last_layer_path)[1].double()
+        p = torch.softmax(phi @ W.T + bias, dim=-1)
+        B, C = p.shape
+        eye = torch.eye(C, dtype=p.dtype, device=p.device)
+        S = p.sqrt()[:, :, None] * (eye[None] - p[:, None, :])  # (B, sweep s, output o)
+        M = torch.cat([S, torch.einsum("bi,bso->bsio", phi, S).reshape(B, C, -1)], 2)
+        Hb = syrk_plain(M.reshape(B * C, -1))
+        H = Hb if H is None else H + Hb
+    return H
+
+
+def last_layer_phase(seed, device):
+    """Last-layer Laplace at full width on the main path's network and data:
+    the default KronLL (v1 kernel), FullLL (syrk kernel) and DiagLL."""
+    import torch
+
+    from laplace_jax_torch import DiagLLLaplace, FullLLLaplace, KronLLLaplace, Laplace
+    from laplace_jax_torch.ops.latrd import latrd_panel
+    from laplace_jax_torch.ops.latrd_v4 import latrd_panel_v4
+    from laplace_jax_torch.ops.syrk import syrk
+
+    net, loader, X_test = full_width(seed)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    res = dict(phase="last_layer", model="ResNet18(width=64, num_classes=10)", n_data=512,
+               batch=128, dtype="float32")
+
+    def fit(la, name):
+        torch.cuda.reset_peak_memory_stats()
+        latrd_panel.launches = latrd_panel_v4.launches = syrk.launches = 0
+        t0 = time.perf_counter()
+        la.fit(loader)
+        torch.cuda.synchronize()
+        res[f"{name}_fit_s"] = time.perf_counter() - t0
+        res[f"{name}_launches"] = {"latrd_panel": latrd_panel.launches,
+                                   "latrd_panel_v4": latrd_panel_v4.launches,
+                                   "syrk": syrk.launches}
+        res[f"{name}_fit_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
+        res[f"{name}_log_marglik"] = float(la.log_marginal_likelihood())
+        return res[f"{name}_launches"]
+
+    kron = Laplace(net, "classification", device=device)  # the default flavor
+    kron_launches = fit(kron, "kron")
+    res.update(kron_class=type(kron).__name__, n_params=kron.n_params,
+               last_layer=list(kron.last_layer_path))
+
+    full = Laplace(net, "classification", "last_layer", "full", device=device)
+    full_launches = fit(full, "full")
+    H64 = ll_ggn_f64(full, loader)
+    res["full_H_rel_err_vs_f64"] = float((full.H.double() - H64).abs().max() / H64.abs().max())
+    res["full_H_exactly_symmetric"] = bool(torch.equal(full.H, full.H.mT))
+    t0 = time.perf_counter()
+    full.optimize_prior_precision(method="marglik", n_steps=100)
+    torch.cuda.synchronize()
+    res["full_marglik_100_steps_s"] = time.perf_counter() - t0
+    res["full_prior_precision"] = float(full.prior_precision[0])
+    res["full_log_marglik_tuned"] = float(full.log_marginal_likelihood())
+    t0 = time.perf_counter()
+    probs = full(X_test[:8])
+    torch.cuda.synchronize()
+    res["full_probit_8_s"] = time.perf_counter() - t0
+    res["full_probit_row_sum_err"] = float((probs.sum(-1) - 1).abs().max())
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    samples = full.predictive_samples(X_test, pred_type="glm", n_samples=100, generator=gen)
+    torch.cuda.synchronize()
+    res["full_glm_samples_100x128_s"] = time.perf_counter() - t0
+    res["full_glm_samples_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    res["full_glm_samples_shape"] = list(samples.shape)
+    res["full_glm_samples_row_sum_err"] = float((samples.sum(-1) - 1).abs().max())
+
+    diag = Laplace(net, "classification", "last_layer", "diag", device=device)
+    fit(diag, "diag")
+    dref = torch.diagonal(full.H)
+    res["diag_H_rel_err_vs_full"] = float((diag.H - dref).abs().max() / dref.abs().max())
+    emit(res)
+
+    check(isinstance(kron, KronLLLaplace), f"the default Laplace is a {type(kron).__name__}")
+    check(isinstance(full, FullLLLaplace) and isinstance(diag, DiagLLLaplace),
+          "Laplace() gave the wrong last-layer classes")
+    check(kron.n_params == 5130 and tuple(kron.last_layer_path) == ("Dense_0",),
+          f"last layer {kron.last_layer_path} with {kron.n_params} weights, not Dense_0 with 5130")
+    check(kron_launches["latrd_panel"] > 0, f"the KronLL fit did not run the v1 kernel: {kron_launches}")
+    check(full_launches["syrk"] == 4, f"the FullLL fit launched syrk {full_launches['syrk']} times, not 4")
+    for name in ("kron", "full", "diag"):
+        check(math.isfinite(res[f"{name}_log_marglik"]), f"{name}LL marglik is not finite")
+    check(res["full_H_rel_err_vs_f64"] <= GGN_TOL,
+          f"FullLL H off the float64 GGN by {res['full_H_rel_err_vs_f64']:.3e} > {GGN_TOL}")
+    check(res["full_H_exactly_symmetric"], "FullLL H is not exactly symmetric")
+    check(math.isfinite(res["full_prior_precision"]) and res["full_prior_precision"] > 0,
+          f"tuned prior precision {res['full_prior_precision']}")
+    check(tuple(probs.shape) == (8, 10) and bool(torch.isfinite(probs).all()),
+          "FullLL predictive has the wrong shape or is not finite")
+    check(res["full_probit_row_sum_err"] <= 1e-5, "FullLL predictive rows do not sum to 1")
+    check(tuple(samples.shape) == (100, 128, 10) and bool(torch.isfinite(samples).all()),
+          "GLM predictive samples have the wrong shape or are not finite")
+    check(res["full_glm_samples_row_sum_err"] <= 1e-5, "GLM predictive samples do not sum to 1")
+    check(res["diag_H_rel_err_vs_full"] <= DIAG_TOL,
+          f"DiagLL H off diag(FullLL H) by {res['diag_H_rel_err_vs_full']:.3e} > {DIAG_TOL}")
+    return {"syrk": full_launches["syrk"]}
 
 
 def main() -> None:
@@ -302,8 +502,12 @@ def main() -> None:
 
     rows = [kernel_phase(name, mod, src, rep, K, n, args.seed, device)
             for name, mod, src, rep, K, n in KERNELS]
+    rows.append(syrk_phase(args.seed, device))
     reference_phase(args.seed, device)
+    # each kernel's launches from the path that runs it: the LATRD panels
+    # from the all-weights main path, syrk from the last-layer FullLL fit
     launches = main_path(args.seed, device)
+    launches.update(last_layer_phase(args.seed, device))
 
     keys = ("name", "route", "source", "replaces", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")

@@ -5,7 +5,13 @@ device unless the caller passes `device="cpu"`. It imports nothing of JAX
 or of the JAX package.
 """
 
-from laplace_jax_torch.baselaplace import BaseLaplace, KronLaplace, ParametricLaplace
+from laplace_jax_torch.baselaplace import (
+    BaseLaplace,
+    DiagLaplace,
+    FullLaplace,
+    KronLaplace,
+    ParametricLaplace,
+)
 from laplace_jax_torch.enums import (
     HessianStructure,
     Likelihood,
@@ -16,12 +22,19 @@ from laplace_jax_torch.enums import (
     TuningMethod,
 )
 from laplace_jax_torch.laplace import Laplace
+from laplace_jax_torch.lllaplace import DiagLLLaplace, FullLLLaplace, KronLLLaplace, LLLaplace
 from laplace_jax_torch.nnmodel import NNModel
 
 __all__ = [
     "BaseLaplace",
     "ParametricLaplace",
     "KronLaplace",
+    "FullLaplace",
+    "DiagLaplace",
+    "LLLaplace",
+    "KronLLLaplace",
+    "FullLLLaplace",
+    "DiagLLLaplace",
     "Laplace",
     "NNModel",
     "HessianStructure",

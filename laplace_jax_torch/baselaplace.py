@@ -1,13 +1,16 @@
-"""Laplace classes of the main path: BaseLaplace, ParametricLaplace and
-KronLaplace (port of `laplace_jax/baselaplace.py`).
+"""Weight-space Laplace classes: BaseLaplace, ParametricLaplace and the
+Kron, Full and Diag posteriors (port of `laplace_jax/baselaplace.py`).
 
-- `fit` accumulates per-batch KFAC factors in a Python loop (the JAX
-  package's `lax.scan`), merges online fits with the N-rescaled activation
-  factor, and eigendecomposes the factors.
+- `fit` accumulates per-batch curvature in a Python loop (the JAX
+  package's `lax.scan`): KFAC factors, merged across online fits with the
+  N-rescaled activation factor and then eigendecomposed (Kron); the dense
+  GGN through the `syrk` kernel (Full); the GGN diagonal (Diag).
 - `log_marginal_likelihood` is differentiable in the prior precision and
   the noise; `optimize_prior_precision` runs `torch.optim.Adam` on the log
   prior precision (the same update as optax's Adam).
-- The GLM predictive uses the full per-sample Jacobians and the probit link.
+- The GLM predictive uses the per-sample Jacobians (`_jacobians_dispatch`)
+  and the probit link; `predictive_samples` draws GLM samples through the
+  softmax.
 
 The likelihood is classification (regression is not ported yet).
 Everything runs on `device`: CUDA unless the caller passes `device="cpu"`.
@@ -21,14 +24,15 @@ import time
 import torch
 
 from laplace_jax_torch.curvature.backend import CurvatureBackend
-from laplace_jax_torch.enums import Likelihood, PriorStructure, TuningMethod
+from laplace_jax_torch.enums import Likelihood, PredType, PriorStructure, TuningMethod
 from laplace_jax_torch.nnmodel import NNModel
 from laplace_jax_torch.utils.data import dataset_size
 from laplace_jax_torch.utils.device import full_f32_matmuls, resolve_device
+from laplace_jax_torch.utils.linalg import invsqrt_precision, normal_samples
 from laplace_jax_torch.utils.matrix import Kron, KronDecomposed, broadcast_groups
 from laplace_jax_torch.utils.prior import fix_prior_prec_structure
 
-__all__ = ["BaseLaplace", "ParametricLaplace", "KronLaplace"]
+__all__ = ["BaseLaplace", "ParametricLaplace", "KronLaplace", "FullLaplace", "DiagLaplace"]
 
 
 class BaseLaplace:
@@ -70,6 +74,7 @@ class BaseLaplace:
 
     @prior_precision.setter
     def prior_precision(self, prior_precision):
+        self._posterior_scale = None
         pp = torch.atleast_1d(self._tensor(prior_precision))
         if pp.ndim > 1:
             raise ValueError("Prior precision needs to be at most one-dimensional.")
@@ -98,6 +103,11 @@ class BaseLaplace:
         if sn.ndim > 1 or sn.numel() != 1:
             raise ValueError("Sigma noise needs to be a scalar.")
         self._sigma_noise = sn.reshape(())
+
+    @property
+    def prior_precision_diag(self) -> torch.Tensor:
+        """The prior precision as a (n_params,) diagonal."""
+        return self._prior_precision_diag(self.prior_precision)
 
     def _prior_precision_diag(self, prior_precision) -> torch.Tensor:
         pp = torch.atleast_1d(prior_precision)
@@ -173,7 +183,7 @@ class ParametricLaplace(BaseLaplace):
             raise RuntimeError("train_loader yielded no batches.")
         self._sync()
         self.fit_seconds["accumulate"] = time.perf_counter() - t0
-        self.H = H
+        self.H = H if override or self.H is None else self.H + H
         self.n_data += N
 
     def _curv_closure(self, x, y, N):
@@ -188,6 +198,8 @@ class ParametricLaplace(BaseLaplace):
         raise NotImplementedError
 
     def _log_det_ratio(self, prior_precision, sigma_noise):
+        if self.H is None:  # not fitted: the posterior is the prior
+            return torch.zeros((), dtype=self._dtype, device=self.device)
         return (self._log_det_posterior_precision(prior_precision, sigma_noise)
                 - torch.log(self._prior_precision_diag(prior_precision)).sum())
 
@@ -212,14 +224,48 @@ class ParametricLaplace(BaseLaplace):
     def __call__(self, x):
         """GLM predictive with the probit link (reference
         `baselaplace.py:913`, `:989`, link at `:307`): class probabilities (batch, classes)."""
-        Js, f_mu = self.backend.jacobians(self._tensor(x))
-        with torch.no_grad():
-            f_var = self.functional_variance(Js)
+        f_mu, f_var = self._glm_predictive_distribution(x)
         kappa = 1.0 / torch.sqrt(1.0 + math.pi / 8 * torch.diagonal(f_var, dim1=1, dim2=2))
         return torch.softmax(kappa * f_mu, dim=-1)
 
+    def predictive_samples(self, x, pred_type=PredType.GLM, n_samples: int = 100,
+                           diagonal_output: bool = False,
+                           generator: torch.Generator | None = None) -> torch.Tensor:
+        """Class-probability samples (n_samples, batch, classes): GLM
+        function samples through the softmax (reference
+        `baselaplace.py:969`, `:355-373`). The draws come from `generator`
+        (on this Laplace's device), or from torch's default one."""
+        if pred_type != PredType.GLM:
+            raise ValueError("Only the 'glm' predictive samples are ported.")
+        f_mu, f_var = self._glm_predictive_distribution(x, diagonal_output=diagonal_output)
+        return torch.softmax(normal_samples(f_mu, f_var, n_samples, generator), dim=-1)
+
+    def _glm_predictive_distribution(self, x, diagonal_output: bool = False):
+        """GLM predictive mean f (batch, classes) and variance (batch,
+        classes, classes), or its diagonal (reference `baselaplace.py:989`)."""
+        Js, f_mu = self.backend._jacobians_dispatch(self._tensor(x))
+        with torch.no_grad():
+            f_var = self.functional_variance(Js)
+        if diagonal_output:
+            f_var = torch.diagonal(f_var, dim1=-2, dim2=-1)
+        return f_mu, f_var
+
     def functional_variance(self, Js) -> torch.Tensor:
         raise NotImplementedError
+
+    def sample(self, n_samples: int = 100, generator: torch.Generator | None = None):
+        """Parameter samples (n_samples, n_params) from the posterior."""
+        raise NotImplementedError
+
+    def _randn(self, *shape, generator=None) -> torch.Tensor:
+        return torch.randn(*shape, generator=generator, dtype=self._dtype, device=self.device)
+
+    def _check_fitted(self):
+        if self.H is None:
+            raise AttributeError("Laplace not fitted. Run fit() first.")
+
+    def _h_factor(self, sigma_noise):
+        return 1.0 / (sigma_noise ** 2) / self.temperature
 
 
 class KronLaplace(ParametricLaplace):
@@ -256,6 +302,7 @@ class KronLaplace(ParametricLaplace):
         if self.H_facs is not None:
             n_old, n_new = self.n_data, dataset_size(train_loader)
             self.H_facs = self._rescale_factors(self.H_facs, n_old / (n_old + n_new))
+        self.H = None  # the base fit leaves this fit's factors in H
         super().fit(train_loader, override=override)
         if self.H_facs is None:
             self.H_facs = self.H
@@ -271,8 +318,7 @@ class KronLaplace(ParametricLaplace):
             raise AttributeError("Laplace not fitted. Run fit() first.")
 
     def _posterior_precision(self, prior_precision, sigma_noise) -> KronDecomposed:
-        h_factor = 1.0 / (sigma_noise ** 2) / self.temperature
-        return self.H * h_factor + prior_precision
+        return self.H * self._h_factor(sigma_noise) + prior_precision
 
     @property
     def posterior_precision(self) -> KronDecomposed:
@@ -280,15 +326,12 @@ class KronLaplace(ParametricLaplace):
         return self._posterior_precision(self.prior_precision, self.sigma_noise)
 
     def _log_det_posterior_precision(self, prior_precision, sigma_noise):
-        if self.H is None:  # not fitted: the prior alone
-            return torch.log(self._prior_precision_diag(prior_precision)).sum()
         if self.damping:
             return self._posterior_precision(prior_precision, sigma_noise).logdet()
         # logdet(f H + delta) = sum log(f lam + delta) over the cached flat
         # Kronecker eigenvalues of H
-        h_factor = 1.0 / (sigma_noise ** 2) / self.temperature
         dflat = broadcast_groups(self.H._check_deltas(prior_precision), self.H.group_sizes)
-        return torch.log(h_factor * self.H._flat_eigs + dflat).sum()
+        return torch.log(self._h_factor(sigma_noise) * self.H._flat_eigs + dflat).sum()
 
     def functional_variance(self, Js) -> torch.Tensor:
         return self.posterior_precision.inv_square_form(Js)
@@ -298,3 +341,87 @@ class KronLaplace(ParametricLaplace):
         BaseLaplace.prior_precision.fset(self, prior_precision)
         if self._prior_precision.shape[0] not in (1, self.n_layers):
             raise ValueError("Prior precision for Kron either scalar or per-layer.")
+
+
+class FullLaplace(ParametricLaplace):
+    """Dense P x P posterior precision (reference `baselaplace.py:1091`).
+
+    `H` is the summed GGN, built per batch by the `syrk` kernel on the card.
+    The posterior scale (a Cholesky-based inverse square root) is cached
+    until the next fit or prior change.
+    """
+
+    _key = ("all", "full")
+
+    def _curv_closure(self, x, y, N):
+        return self.backend.full(x, y, N)
+
+    def fit(self, train_loader, override: bool = True) -> None:
+        self._posterior_scale = None
+        super().fit(train_loader, override=override)
+
+    @property
+    def posterior_scale(self) -> torch.Tensor:
+        """Lower-triangular `S` with `S S^T` the posterior covariance."""
+        if self._posterior_scale is None:
+            self._posterior_scale = invsqrt_precision(self.posterior_precision)
+        return self._posterior_scale
+
+    @property
+    def posterior_covariance(self) -> torch.Tensor:
+        scale = self.posterior_scale
+        return scale @ scale.mT
+
+    @property
+    def posterior_precision(self) -> torch.Tensor:
+        self._check_fitted()
+        return self._posterior_precision(self.prior_precision, self.sigma_noise)
+
+    def _posterior_precision(self, prior_precision, sigma_noise):
+        return (self._h_factor(sigma_noise) * self.H
+                + torch.diag(self._prior_precision_diag(prior_precision)))
+
+    def _log_det_posterior_precision(self, prior_precision, sigma_noise):
+        return torch.linalg.slogdet(self._posterior_precision(prior_precision, sigma_noise))[1]
+
+    def functional_variance(self, Js) -> torch.Tensor:
+        return torch.einsum("ncp,pq,nkq->nck", Js, self.posterior_covariance, Js)
+
+    def sample(self, n_samples: int = 100, generator: torch.Generator | None = None):
+        eps = self._randn(n_samples, self.n_params, generator=generator)
+        return self.mean[None, :] + eps @ self.posterior_scale.mT
+
+
+class DiagLaplace(ParametricLaplace):
+    """Diagonal posterior precision (reference `baselaplace.py:1370`)."""
+
+    _key = ("all", "diag")
+
+    def _curv_closure(self, x, y, N):
+        return self.backend.diag(x, y, N)
+
+    @property
+    def posterior_precision(self) -> torch.Tensor:
+        self._check_fitted()
+        return self._posterior_precision(self.prior_precision, self.sigma_noise)
+
+    def _posterior_precision(self, prior_precision, sigma_noise):
+        return self._h_factor(sigma_noise) * self.H + self._prior_precision_diag(prior_precision)
+
+    @property
+    def posterior_scale(self) -> torch.Tensor:
+        return 1.0 / torch.sqrt(self.posterior_precision)
+
+    @property
+    def posterior_variance(self) -> torch.Tensor:
+        return 1.0 / self.posterior_precision
+
+    def _log_det_posterior_precision(self, prior_precision, sigma_noise):
+        return torch.log(self._posterior_precision(prior_precision, sigma_noise)).sum()
+
+    def functional_variance(self, Js) -> torch.Tensor:
+        return torch.einsum("ncp,p,nkp->nck", Js, self.posterior_variance, Js)
+
+    def sample(self, n_samples: int = 100, generator: torch.Generator | None = None):
+        eps = self._randn(n_samples, self.n_params, generator=generator)
+        return self.mean[None, :] + eps * self.posterior_scale[None, :]

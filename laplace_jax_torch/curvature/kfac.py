@@ -40,11 +40,13 @@ def _sqrt_hessian_cotangents(f: torch.Tensor) -> torch.Tensor:
     return p.T.sqrt()[:, :, None] * (eye[:, None, :] - p[None, :, :])
 
 
-def kfac_factors(model, x, y, N: int, lossfunc):
+def kfac_factors(model, x, y, N: int, lossfunc, last_layer_path=None):
     """Per-batch exact-Fisher KFAC `Kron` of a classifier, and the batch
-    loss."""
+    loss. With `last_layer_path`, only that layer is tapped (the model's
+    trainable leaves are then that layer's)."""
+    paths = None if last_layer_path is None else {tuple(last_layer_path)}
     with torch.enable_grad():
-        f, taps = model.apply_with_taps(x)
+        f, taps = model.apply_with_taps(x, paths)
         if not taps:
             raise ValueError("No Dense/Conv layers intercepted for KFAC.")
         cot = _sqrt_hessian_cotangents(f.detach())

@@ -1,0 +1,148 @@
+"""Last-layer Laplace approximations (port of `laplace_jax/lllaplace.py`,
+Dense heads).
+
+The last layer is a parameter subset: the model keeps every weight in its
+forward, but only the last Dense layer's leaves are trainable
+(`NNModel(module, trainable=...)`), the Jacobians are that layer's
+closed-form φ⊗I, and KFAC taps that layer alone. With no
+`last_layer_name`, the last executed Dense layer is found on the first fit
+batch, as in the reference (`lllaplace.py:142-160`); until then `n_params`
+is None and the prior waits.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from laplace_jax_torch.baselaplace import DiagLaplace, FullLaplace, KronLaplace, ParametricLaplace
+from laplace_jax_torch.curvature.backend import CurvatureBackend
+from laplace_jax_torch.enums import FeatureReduction
+from laplace_jax_torch.nnmodel import NNModel
+
+__all__ = ["LLLaplace", "FullLLLaplace", "KronLLLaplace", "DiagLLLaplace"]
+
+
+class LLLaplace(ParametricLaplace):
+    """Base class of last-layer Laplace (reference `lllaplace.py:34`).
+
+    `last_layer_name` is the head's torch module name (`"Dense_0"`,
+    `"head.fc"`); None finds it on the first fit batch.
+    Further keyword arguments go to the posterior class (`damping` for
+    Kron).
+    """
+
+    def __init__(self, model, likelihood, sigma_noise=1.0, prior_precision=1.0,
+                 prior_mean=0.0, temperature: float = 1.0,
+                 feature_reduction: FeatureReduction | str | None = None,
+                 last_layer_name: str | None = None, device=None, **kwargs):
+        if feature_reduction is not None and feature_reduction not in [
+                fr.value for fr in FeatureReduction]:
+            raise ValueError("`feature_reduction` must take value in the `FeatureReduction "
+                             "enum` or one of `{'pick_first', 'pick_last', 'average'}`!")
+        super().__init__(model, likelihood, sigma_noise, 1.0, 0.0, temperature,
+                         device=device, **kwargs)
+        self._full_model = self.model
+        self.feature_reduction = feature_reduction
+        self.last_layer_path = None
+        self._deferred_prior = (prior_precision, prior_mean)
+        self.mean = None
+        self.n_params = self.n_layers = None
+        if last_layer_name is not None:
+            self._set_last_layer(tuple(last_layer_name.split(".")))
+
+    def _set_last_layer(self, path: tuple) -> None:
+        """Restrict the model to the last layer's leaves, rebuild the
+        backend, and apply the prior given at construction."""
+        trainable = self._full_model.split_last_layer(path)
+        self.last_layer_path = path
+        self.model = NNModel(self._full_model.module, trainable=trainable)
+        self.n_params = self.model.n_params
+        self.n_layers = self.model.n_layers
+        self.backend = CurvatureBackend(self.model, last_layer_path=path,
+                                        feature_reduction=self.feature_reduction)
+        self.prior_precision, self.prior_mean = self._deferred_prior
+        self.mean = self.prior_mean
+
+    def fit(self, train_loader, override: bool = True) -> None:
+        """Find the last layer on the first batch if needed, then fit
+        (reference `lllaplace.py:162-210`)."""
+        if not override:
+            raise ValueError("Last-layer Laplace approximations do not support "
+                             "`override=False`.")
+        if self.last_layer_path is None:
+            X, _ = next(iter(train_loader))
+            self._set_last_layer(self._full_model.find_last_layer(self._tensor(X)))
+        super().fit(train_loader, override=True)
+
+    def _features(self, x):
+        with torch.no_grad():
+            return self.model.apply_with_features(self._tensor(x), self.last_layer_path,
+                                                  self.feature_reduction)
+
+    def _has_bias(self) -> bool:
+        return any(s.path[-1] == "bias" for s in self.model.leaf_specs)
+
+    def _glm_predictive_distribution(self, x, diagonal_output: bool = False):
+        """The GLM predictive; the diagonal comes from
+        `functional_variance_fast` (reference `lllaplace.py:212-237`)."""
+        if diagonal_output:
+            return self.functional_variance_fast(x)
+        return super()._glm_predictive_distribution(x)
+
+    def functional_variance_fast(self, x):
+        """f (batch, classes) and the diagonal output variance (batch,
+        classes); the flavors below compute it without the Jacobians."""
+        f_mu, f_var = super()._glm_predictive_distribution(x)
+        return f_mu, torch.diagonal(f_var, dim1=-2, dim2=-1)
+
+
+class FullLLLaplace(LLLaplace, FullLaplace):
+    """Dense last-layer posterior (reference `lllaplace.py:371-380`)."""
+
+    _key = ("last_layer", "full")
+
+
+class KronLLLaplace(LLLaplace, KronLaplace):
+    """KFAC last-layer posterior (reference `lllaplace.py:383-476`)."""
+
+    _key = ("last_layer", "kron")
+
+    def functional_variance_fast(self, x):
+        """Diagonal output variance in the Kron eigenbasis, without the
+        Jacobians (the JAX package's `lllaplace.py:286-322`; the reference
+        stubs it). With the kernel group's posterior precision
+        `(QA⊗QB) D (QA⊗QB)ᵀ`:
+
+        ``var[b, c] = Σ_ij (QAᵀφ_b)_i² QB[c, j]² / D_ij + var_bias[c]``
+        """
+        f_mu, phi = self._features(x)
+        pp = self.posterior_precision
+        has_bias = self._has_bias()
+        gi = 1 if has_bias else 0  # the bias group comes first
+        (QA, QB), (lA, lB) = pp.eigenvectors[gi], pp.eigenvalues[gi]
+        Dinv = 1.0 / pp._group_eig((lA, lB), pp.deltas[gi], 1.0)
+        f_var = torch.einsum("bi,cj,ij->bc", (phi @ QA) ** 2, QB ** 2, Dinv)
+        if has_bias:
+            Qb, lb = pp.eigenvectors[0][0], pp.eigenvalues[0][0]
+            f_var = f_var + torch.einsum("cj,j->c", Qb ** 2, 1.0 / (lb + pp.deltas[0]))[None]
+        return f_mu, f_var
+
+
+class DiagLLLaplace(LLLaplace, DiagLaplace):
+    """Diagonal last-layer posterior (reference `lllaplace.py:479-506`)."""
+
+    _key = ("last_layer", "diag")
+
+    def functional_variance_fast(self, x):
+        """Diagonal output variance φ²·σ²_W + σ²_b, without the Jacobians
+        (reference `lllaplace.py:489-506`); the kernel leaf is input-major
+        (d, k) after the bias."""
+        f_mu, phi = self._features(x)
+        k = f_mu.shape[-1]
+        d = phi.shape[-1]
+        var = self.posterior_variance
+        offset = k if self._has_bias() else 0
+        f_var = torch.einsum("bd,dk,bd->bk", phi, var[offset:offset + d * k].reshape(d, k), phi)
+        if offset:
+            f_var = f_var + var[:k][None]
+        return f_mu, f_var

@@ -1,5 +1,5 @@
 """Model adapter with layer taps (port of `laplace_jax/nnmodel.py`, Dense
-and Conv taps only).
+and Conv taps, a trainable subset of leaves and the last-layer helpers).
 
 `apply_with_taps` plants a forward hook on every `Conv` and `nn.Linear`.
 The hook records the layer's input and adds a zero tensor that requires
@@ -7,6 +7,9 @@ grad to the layer's output: the gradient with respect to that zero
 offset is the layer's output gradient, which KFAC needs for its B factor
 (the JAX package differentiates the same zero offsets through a flax
 interceptor, `laplace_jax/nnmodel.py:205-212`).
+
+A last layer is a module path such as `("Dense_0",)`; its leaves are the
+parameters whose module path is exactly that path.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from laplace_jax_torch.enums import FeatureReduction
 from laplace_jax_torch.models.resnet import Conv
 from laplace_jax_torch.utils.flatten import leaf_specs, parameters_to_vector
 
@@ -32,12 +36,23 @@ class LayerTap:
     spec: Optional[dict] = None  # conv: kernel_size, strides, padding
 
 
-class NNModel:
-    """An `nn.Module` with its canonical parameter flattening and taps."""
+def _module_path(name: str) -> tuple:
+    return tuple(name.split(".")) if name else ()
 
-    def __init__(self, module: nn.Module):
+
+class NNModel:
+    """An `nn.Module` with its canonical parameter flattening and taps.
+
+    `trainable` (a set of torch parameter names, the JAX package's
+    `trainable_mask`) restricts the flat vector to those leaves; the others
+    stay in the forward as constants. None means every parameter that
+    requires grad.
+    """
+
+    def __init__(self, module: nn.Module, trainable=None):
         self.module = module
-        self.leaf_specs = leaf_specs(module)
+        self.trainable = trainable
+        self.leaf_specs = leaf_specs(module, trainable)
         self.n_params = sum(s.size for s in self.leaf_specs)
         self.n_layers = len(self.leaf_specs)
         self._params = dict(module.named_parameters())
@@ -53,9 +68,10 @@ class NNModel:
     def apply(self, x):
         return self.module(x)
 
-    def apply_with_taps(self, x):
+    def apply_with_taps(self, x, paths=None):
         """Forward pass returning `(f, taps)`, taps in execution order; each
-        tapped output gets `+ zeros` requiring grad."""
+        tapped output gets `+ zeros` requiring grad. With `paths` (a set of
+        module paths), only those layers are tapped."""
         taps: list[LayerTap] = []
 
         def make_hook(path, kind, spec):
@@ -68,7 +84,9 @@ class NNModel:
 
         handles = []
         for name, mod in self.module.named_modules():
-            path = tuple(name.split(".")) if name else ()
+            path = _module_path(name)
+            if paths is not None and path not in paths:
+                continue
             if isinstance(mod, Conv):
                 spec = dict(kernel_size=mod.kernel_size, strides=mod.strides,
                             padding=mod.padding)
@@ -81,3 +99,60 @@ class NNModel:
             for h in handles:
                 h.remove()
         return f, taps
+
+    # -- last layer ----------------------------------------------------------
+    def find_last_layer(self, x) -> tuple:
+        """Path of the last executed Dense layer, from a forward of `x[:1]`
+        (reference `baselaplace.py:947-951` probes the same way). Heads of
+        other kinds are not ported."""
+        with torch.no_grad():
+            _, taps = self.apply_with_taps(x[:1])
+        dense = [t.path for t in taps if t.kind == "dense"]
+        if not dense:
+            raise ValueError("No Dense layer found for last-layer Laplace (non-Dense "
+                             "heads are not ported).")
+        return dense[-1]
+
+    def last_layer_param_paths(self, last_layer_path: tuple) -> list[tuple]:
+        """Flax leaf paths of the parameters under the last layer."""
+        sel = [s.path for s in leaf_specs(self.module) if s.path[:-1] == tuple(last_layer_path)]
+        if not sel:
+            raise ValueError(f"No parameters found under module path {last_layer_path}.")
+        return sel
+
+    def split_last_layer(self, last_layer_path: tuple) -> set:
+        """The last layer's torch parameter names: the `trainable` set of a
+        last-layer model. The layer must be an `nn.Linear`."""
+        self.last_layer_param_paths(last_layer_path)
+        mod = self.module.get_submodule(".".join(last_layer_path))
+        if not isinstance(mod, nn.Linear):
+            raise ValueError(f"Last layer {last_layer_path} is a {type(mod).__name__}; "
+                             "only Dense (nn.Linear) heads are ported.")
+        return {s.name for s in leaf_specs(self.module) if s.path[:-1] == tuple(last_layer_path)}
+
+    def apply_with_features(self, x, last_layer_path: tuple,
+                            feature_reduction: FeatureReduction | str | None = None):
+        """Forward returning `(f, features)`, the features being the last
+        layer's input, reduced to (batch, dim) if asked
+        (`feature_extractor.py:100-127`)."""
+        feats = []
+        mod = self.module.get_submodule(".".join(last_layer_path))
+        handle = mod.register_forward_hook(lambda m, args, out: feats.append(args[0]))
+        try:
+            f = self.module(x)
+        finally:
+            handle.remove()
+        if not feats:
+            raise ValueError(f"Last layer {last_layer_path} not executed in forward.")
+        phi = feats[-1]
+        if phi.ndim > 2 and feature_reduction is not None:
+            lead = tuple(range(1, phi.ndim - 1))
+            if feature_reduction == FeatureReduction.PICK_FIRST:
+                phi = phi[(slice(None),) + (0,) * len(lead)]
+            elif feature_reduction == FeatureReduction.PICK_LAST:
+                phi = phi[(slice(None),) + (-1,) * len(lead)]
+            elif feature_reduction == FeatureReduction.AVERAGE:
+                phi = phi.mean(dim=lead)
+            else:
+                raise ValueError(f"Invalid feature_reduction {feature_reduction}.")
+        return f, phi

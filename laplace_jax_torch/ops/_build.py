@@ -24,7 +24,19 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD = Path(__file__).resolve().parents[2] / "build"
-SOURCES = ("latrd", "latrd_v4")
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# Aw, UW, det, col, part, y, st, scal, K, m, nb, off, q_base, n_real, stream
+_PANEL = [_P] * 8 + [_I] * 6 + [_P]
+_SYRK = [_P, _P, _I, _I, _P]  # A, H, R, P, stream
+# each source's C entry points and their argument types; every library
+# also exports `error_string(int)`
+SIGNATURES = {
+    "latrd": {"panel_f32": _PANEL, "panel_f64": _PANEL},
+    "latrd_v4": {"panel_f32": _PANEL, "panel_f64": _PANEL},
+    "syrk": {"syrk_f32": _SYRK, "syrk_f64": _SYRK},
+}
+SOURCES = tuple(SIGNATURES)
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -85,13 +97,11 @@ def load(name: str) -> ctypes.CDLL:
     if name not in _libs:
         build_all([name])
         lib = ctypes.CDLL(str(_target(name)))
-        P, I = ctypes.c_void_p, ctypes.c_int
-        for fn in ("panel_f32", "panel_f64"):
+        for fn, argtypes in SIGNATURES[name].items():
             f = getattr(lib, fn)
-            # Aw, UW, det, col, part, y, st, scal, K, m, nb, off, q_base, n_real, stream
-            f.argtypes = [P] * 8 + [I] * 6 + [P]
-            f.restype = I
-        lib.error_string.argtypes = [I]
+            f.argtypes = argtypes
+            f.restype = _I
+        lib.error_string.argtypes = [_I]
         lib.error_string.restype = ctypes.c_char_p
         _libs[name] = lib
     return _libs[name]

@@ -50,11 +50,12 @@ def to_flax_layout(t: torch.Tensor, lead: int = 0) -> torch.Tensor:
     return t
 
 
-def leaf_specs(module: nn.Module) -> list[LeafSpec]:
-    """Trainable parameters in canonical (sorted flax path) order."""
+def leaf_specs(module: nn.Module, trainable=None) -> list[LeafSpec]:
+    """Trainable parameters in canonical (sorted flax path) order; with
+    `trainable` (a set of torch parameter names), only those."""
     named = sorted(
         ((flax_path(n), n, p) for n, p in module.named_parameters()
-         if p.requires_grad),
+         if p.requires_grad and (trainable is None or n in trainable)),
         key=lambda t: t[0],
     )
     specs, offset = [], 0

@@ -19,3 +19,37 @@ def symeig(M: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         L, W = torch.linalg.eigh(M + eye)
         L = L - 1.0
     return torch.nan_to_num(L.clamp(min=0.0)), torch.nan_to_num(W)
+
+
+def invsqrt_precision(M: torch.Tensor) -> torch.Tensor:
+    """Lower-triangular scale `S` with `S S^T = M^{-1}` for a precision
+    matrix `M`: Cholesky of the flipped precision, then a triangular
+    solve."""
+    Lf = torch.linalg.cholesky(torch.flip(M, (-2, -1)))
+    L_inv = torch.flip(Lf, (-2, -1)).mT  # lower triangular
+    eye = torch.eye(M.shape[-1], dtype=M.dtype, device=M.device)
+    return torch.linalg.solve_triangular(L_inv, eye, upper=False)
+
+
+def normal_samples_from(mean: torch.Tensor, var: torch.Tensor,
+                        randn: torch.Tensor) -> torch.Tensor:
+    """`normal_samples` with its standard-normal draws given: `randn` is
+    (dim, n_samples), shared by every row of the batch."""
+    if mean.ndim != 2:
+        raise ValueError("Invalid input shape of mean, should be 2-dimensional.")
+    if mean.shape == var.shape:  # diagonal covariance
+        scaled = var.sqrt()[..., None] * randn[None]
+    elif var.ndim == 3 and var.shape[:2] == mean.shape and var.shape[-1] == mean.shape[1]:
+        scaled = torch.linalg.cholesky(var) @ randn[None]
+    else:
+        raise ValueError("Invalid input shapes.")
+    return (mean[..., None] + scaled).permute(2, 0, 1)
+
+
+def normal_samples(mean: torch.Tensor, var: torch.Tensor, n_samples: int,
+                   generator: torch.Generator | None = None) -> torch.Tensor:
+    """Samples (n_samples, batch, dim) from a batch of Normals with diagonal
+    (batch, dim) or full (batch, dim, dim) covariance."""
+    randn = torch.randn(mean.shape[-1], n_samples, generator=generator,
+                        dtype=mean.dtype, device=mean.device)
+    return normal_samples_from(mean, var, randn)

@@ -1,15 +1,17 @@
-"""The CUDA LATRD kernels against their plain PyTorch versions, on the card.
+"""The CUDA kernels (LATRD panels, syrk) against their plain PyTorch
+versions, on the card.
 
 These tests need a CUDA device (the kernels have no CPU mode) and skip
 without one. Run them on a machine with the card:
 
     python -m pytest tests/test_torch_cuda_kernels.py -m cuda -q
 
-They import no JAX: the reference is the port's plain panels, which
-`tests/test_torch_latrd.py` holds against the JAX package on the CPU.
-Tolerances, relative to each output's largest entry: float64 1e-10 (only
-the summation order differs), float32 2e-4 (order, and the v4 kernel's
-atomics, whose order changes from run to run).
+They import no JAX: the reference is the port's plain versions, which
+`tests/test_torch_latrd.py` and `tests/test_torch_syrk.py` hold against the
+JAX package on the CPU. Tolerances, relative to each output's largest
+entry: float64 1e-10 (only the summation order differs); float32 2e-4 for
+the panels (order, and the v4 kernel's atomics, whose order changes from
+run to run) and 1e-4 for syrk (order over up to 1280 rows).
 """
 
 import numpy as np
@@ -22,6 +24,7 @@ from laplace_jax_torch.ops.latrd_v4 import (
     latrd_panel_v4_plain,
     tridiagonalize_latrd_v4,
 )
+from laplace_jax_torch.ops.syrk import syrk, syrk_plain
 from laplace_jax_torch.ops.tridiag import apply_q
 
 # several test workers share the CPU: one intra-op thread each
@@ -101,6 +104,54 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         latrd_panel(A.mT, 0, 0, 128, 8)  # not contiguous
     with pytest.raises(ValueError):
         latrd_panel_v4(A[:, :100, :100].contiguous(), 0, 0, 100, 8)  # m % 64
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10), (torch.float32, 1e-4)])
+@pytest.mark.parametrize("shape", [(37, 130), (256, 512), (1280, 5130)], ids=str)
+def test_syrk_matches_plain(cuda, dtype, tol, shape):
+    """Ragged, aligned and the last-layer main-path shape; the kernel's
+    output is exactly symmetric."""
+    A = torch.as_tensor(np.random.default_rng(7).standard_normal(shape), dtype=dtype).to(cuda)
+    launches = syrk.launches
+    got = syrk(A)
+    torch.cuda.synchronize()
+    assert syrk.launches == launches + 1
+    ref = syrk_plain(A)
+    torch.testing.assert_close(got, ref, atol=tol * float(ref.abs().max()), rtol=0)
+    assert torch.equal(got, got.mT)
+
+
+def test_syrk_rejects_what_the_kernel_does_not_take(cuda):
+    A = torch.zeros(16, 8, device=cuda)
+    with pytest.raises(TypeError):
+        syrk(A.half())
+    with pytest.raises(ValueError):
+        syrk(A.mT)  # not contiguous
+
+
+@pytest.mark.parametrize("subset,hessian,width", [
+    ("last_layer", "kron", 8), ("last_layer", "full", 8), ("last_layer", "diag", 8),
+    ("all", "full", 1), ("all", "diag", 1)])
+def test_laplace_flavor_on_card_matches_cpu(cuda, subset, hessian, width):
+    """`Laplace()` flavors in float64 on ResNet-18 (width 8 for the last
+    layer, width 1 for all weights): on the card a full GGN runs the float64
+    syrk kernel once per batch, on the CPU the einsum."""
+    from laplace_jax_torch import Laplace
+    from laplace_jax_torch.models.resnet import ResNet18
+    from laplace_jax_torch.utils.data import ArrayLoader
+
+    rng = np.random.default_rng(0)
+    X, y = rng.standard_normal((16, 16, 16, 3)), rng.integers(0, 10, 16)
+    net = ResNet18(width=width, generator=torch.Generator().manual_seed(0)).double()
+    out = []
+    for dev in ("cpu", cuda):
+        la = Laplace(net, "classification", subset, hessian, device=dev)
+        launches = syrk.launches
+        la.fit(ArrayLoader(X, y, batch_size=8))
+        out.append((float(la.log_marginal_likelihood()), la(X[:4]).cpu()))
+    assert syrk.launches == launches + (2 if hessian == "full" else 0)
+    np.testing.assert_allclose(out[1][0], out[0][0], rtol=1e-8)
+    torch.testing.assert_close(out[1][1], out[0][1], atol=1e-8, rtol=0)
 
 
 def test_kron_laplace_on_card_matches_cpu(cuda):

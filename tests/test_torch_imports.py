@@ -32,4 +32,5 @@ def test_port_imports_no_jax(path):
 
 def test_port_package_is_covered():
     names = {p.name for p in FILES}
-    assert {"latrd.py", "latrd_v4.py", "baselaplace.py", "chip_smoke.py"} <= names
+    assert {"latrd.py", "latrd_v4.py", "syrk.py", "baselaplace.py", "lllaplace.py",
+            "chip_smoke.py"} <= names

@@ -176,7 +176,7 @@ def test_factory_and_device_rule(pair):
     la = Laplace(pair["tm"], "classification", "all", "kron", device="cpu")
     assert isinstance(la, KronLaplace)
     with pytest.raises(ValueError, match="not ported"):
-        Laplace(pair["tm"], "classification", "last_layer", "kron", device="cpu")
+        Laplace(pair["tm"], "classification", "all", "lowrank", device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             KronLaplace(pair["tm"], "classification")
