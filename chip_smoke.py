@@ -9,9 +9,10 @@ Phases, each printing one JSON line; any failed check exits non-zero:
 2. build   - compiles every CUDA kernel from `laplace_jax_torch/csrc/`,
              one `nvcc` per source, all at once;
 3. kernels - each LATRD panel kernel at a real ResNet-18 factor class
-             (v1 at (4, 1152), v4 at (3, 4608), float32) against its plain
-             PyTorch version on the same inputs, and the whole
-             `eigh_stack_ts` through that kernel against `torch.linalg.eigh`;
+             (v1 and v2 at (4, 1152), v4 and v3 at (3, 4608), float32)
+             against its plain PyTorch version on the same inputs, v3 also
+             against itself (bitwise), and the whole `eigh_stack_ts`
+             through that kernel against `torch.linalg.eigh`;
              the syrk kernel at the last-layer GGN shape (1280, 5130)
              float32 and a ragged (37, 130) float64 against `syrk_plain`;
 4. reference - width-8 ResNet-18 fits in float64 on the card against the
@@ -28,7 +29,14 @@ Phases, each printing one JSON line; any failed check exits non-zero:
              FullLL (the syrk kernel, 4 launches; its GGN against a float64
              one; marglik tuning; probit predictive; 100 GLM predictive
              samples on 128 inputs) and DiagLL (against FullLL's diagonal),
-             each kernel's launches read from its own fit.
+             each kernel's launches read from its own fit;
+7. eigensolvers - on the same network and data, the pooled spectral D&C
+             through the user's entry point (`EIGH_IMPLEMENTATION = "dc"`,
+             a second `KronLaplace` fit) against float64 `eigvalsh` and the
+             `main` phase's marglik; every factor class n >= 512 of that fit
+             through `eigh_stack_ts` with the v3 and then the v2 kernel
+             (their launches read here); and a float64 (2, 576) D&C on the
+             card against the same call on the CPU.
 
 Then the kernel summary line, the `nvidia-smi` line, and last
 `{"ok": true, "device": {...}}`. Without a CUDA device, or outside the
@@ -63,12 +71,20 @@ SYRK_SHAPES = [((1280, 5130), "float32"), ((37, 130), "float64")]  # main-path s
 GGN_TOL = 1e-4  # FullLL float32 H vs the float64 GGN, relative to its largest entry
 DIAG_TOL = 1e-5  # DiagLL H vs diag(FullLL H), relative to its largest entry
 
-KERNELS = [  # (name, module, lib, source, TPU kernel replaced, K, n)
-    ("latrd_panel", "latrd", "laplace_jax_torch/csrc/latrd.cu",
-     "laplace_jax/ops/latrd_pallas.py:250", 4, 1152),
-    ("latrd_panel_v4", "latrd_v4", "laplace_jax_torch/csrc/latrd_v4.cu",
-     "laplace_jax/ops/latrd_pallas_v4.py:319", 3, 4608),
+DC_LML_TOL = 1e-4  # dc fit's marglik vs the main (ts) fit's, relative
+DC_F64_TOL = 1e-9  # float64 D&C on the card vs on the CPU, same draws
+
+KERNELS = [  # (name, module, stage-1 driver and name, source, TPU kernel replaced, K, n)
+    ("latrd_panel", "latrd", "tridiagonalize_latrd", "latrd",
+     "laplace_jax_torch/csrc/latrd.cu", "laplace_jax/ops/latrd_pallas.py:250", 4, 1152),
+    ("latrd_panel_v4", "latrd_v4", "tridiagonalize_latrd_v4", "latrd_v4",
+     "laplace_jax_torch/csrc/latrd_v4.cu", "laplace_jax/ops/latrd_pallas_v4.py:319", 3, 4608),
+    ("latrd_panel_v3", "latrd_v3", "tridiagonalize_latrd_v3", "latrd_v3",
+     "laplace_jax_torch/csrc/latrd_v3.cu", "laplace_jax/ops/latrd_pallas_v3.py:283", 3, 4608),
+    ("latrd_panel_v2", "latrd_v2", "tridiagonalize_latrd_v2", "latrd_v2",
+     "laplace_jax_torch/csrc/latrd_v2.cu", "laplace_jax/ops/latrd_pallas_v2.py:262", 4, 1152),
 ]
+BITWISE = {"latrd_panel_v3"}  # kernels whose two launches must agree bit for bit
 
 
 def emit(obj) -> None:
@@ -117,7 +133,7 @@ def panel_bound_ms(K: int, m: int, nb: int, itemsize: int, flops_peak: float):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def kernel_phase(name, module, source, replaces, K, n, seed, device):
+def kernel_phase(name, module, driver, stage1, source, replaces, K, n, seed, device):
     import importlib
 
     import torch
@@ -125,8 +141,7 @@ def kernel_phase(name, module, source, replaces, K, n, seed, device):
     from laplace_jax_torch.ops.tridiag_eig import eigh_stack_ts
 
     mod = importlib.import_module(f"laplace_jax_torch.ops.{module}")
-    kernel, plain = getattr(mod, name), getattr(mod, f"{name}_plain")
-    driver = mod.tridiagonalize_latrd if module == "latrd" else mod.tridiagonalize_latrd_v4
+    kernel, plain, driver = getattr(mod, name), getattr(mod, f"{name}_plain"), getattr(mod, driver)
     gen = torch.Generator(device=device).manual_seed(seed)
     A = sym_stack(K, n, gen, device, torch.float32)
     nb = 64
@@ -143,6 +158,10 @@ def kernel_phase(name, module, source, replaces, K, n, seed, device):
     max_abs_err = float(max((g - r).abs().max() for g, r in zip(got, ref)))
     for key, err in errs.items():
         check(err <= PANEL_TOL, f"{name} panel {key}: relative error {err:.3e} > {PANEL_TOL}")
+    again = kernel(A, 0, 0, n, nb)
+    torch.cuda.synchronize()
+    bitwise = all(bool(torch.equal(g, r)) for g, r in zip(got, again))
+    check(bitwise or name not in BITWISE, f"{name}: two launches on one window differ")
 
     ms = cuda_ms(lambda: kernel(A, 0, 0, n, nb), reps=5)
     plain_ms = cuda_ms(lambda: plain(A, 0, 0, n, nb), reps=2)
@@ -154,10 +173,10 @@ def kernel_phase(name, module, source, replaces, K, n, seed, device):
 
     # the whole two-stage solver through this kernel against torch.linalg.eigh
     launches0 = kernel.launches
-    lam, Q = eigh_stack_ts(A, device=device)
+    lam, Q = eigh_stack_ts(A, stage1=stage1, device=device)
     torch.cuda.synchronize()
     check(kernel.launches > launches0, f"eigh_stack_ts at n={n} did not launch {name}")
-    ts_ms = cuda_ms(lambda: eigh_stack_ts(A, device=device), reps=1)
+    ts_ms = cuda_ms(lambda: eigh_stack_ts(A, stage1=stage1, device=device), reps=1)
     lam_ref = torch.linalg.eigvalsh(A.double())
     stage1_err = float((torch.linalg.eigvalsh(T) - lam_ref).abs().max() / lam_ref.abs().max())
     eig_err = float((lam.double() - lam_ref).abs().max() / lam_ref.abs().max())
@@ -171,10 +190,10 @@ def kernel_phase(name, module, source, replaces, K, n, seed, device):
 
     row = dict(name=name, route="cuda", source=source, replaces=replaces,
                shape=[K, n, n], nb=nb, dtype="float32", max_abs_err=max_abs_err,
-               rel_err=errs, panel_tol=PANEL_TOL, ms=ms, plain_ms=plain_ms,
+               rel_err=errs, panel_tol=PANEL_TOL, repeat_bitwise=bitwise, ms=ms, plain_ms=plain_ms,
                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
                library_call="torch.linalg.eigh on the whole stack (yardstick only)",
-               stage1_ms=stage1_ms, ts_ms=ts_ms, stage1_spectrum_err=stage1_err, eig_rel_err=eig_err,
+               stage1=stage1, stage1_ms=stage1_ms, ts_ms=ts_ms, stage1_spectrum_err=stage1_err, eig_rel_err=eig_err,
                recon_rel_err=recon, orth_err=orth)
     emit(dict(phase="kernel", **row))
     return row
@@ -351,7 +370,7 @@ def main_path(seed, device):
     check(tuple(probs.shape) == (8, 10) and bool(torch.isfinite(probs).all()),
           "predictive has the wrong shape or is not finite")
     check(row_err <= 1e-5, f"predictive rows sum to 1 only within {row_err:.3e}")
-    return launches
+    return res
 
 
 def ll_ggn_f64(la, loader):
@@ -469,6 +488,125 @@ def last_layer_phase(seed, device):
     return {"syrk": full_launches["syrk"]}
 
 
+def class_stacks(kfacs):
+    """The symmetrized factor stacks of a `Kron`, by size n >= 512, as
+    `Kron.decompose` groups them, with their (group, factor) keys."""
+    import torch
+
+    keys: dict = {}
+    for gi, F in enumerate(kfacs):
+        for fi, H in enumerate(F):
+            if H.shape[0] >= 512:
+                keys.setdefault(H.shape[0], []).append((gi, fi))
+    out = {}
+    for n, ks in sorted(keys.items()):
+        stack = torch.stack([kfacs[gi][fi] for gi, fi in ks])
+        out[n] = (ks, (stack + stack.mT) / 2)
+    return out
+
+
+def eigensolvers_phase(seed, device, main):
+    """The eigensolver choices of `Kron.decompose` at full width: the pooled
+    spectral D&C through `KronLaplace.fit`, every class n >= 512 of that
+    fit through the v3 and the v2 stage-1 kernels, and a float64 D&C on the
+    card against the CPU."""
+    import torch
+
+    from laplace_jax_torch import KronLaplace
+    from laplace_jax_torch.ops.eigh_dc import eigh_pooled_dc
+    from laplace_jax_torch.ops.latrd import latrd_panel
+    from laplace_jax_torch.ops.latrd_v2 import latrd_panel_v2
+    from laplace_jax_torch.ops.latrd_v3 import latrd_panel_v3
+    from laplace_jax_torch.ops.latrd_v4 import latrd_panel_v4
+    from laplace_jax_torch.ops.tridiag_eig import eigh_stack_ts
+    from laplace_jax_torch.utils import matrix
+
+    net, loader, _ = full_width(seed)
+    res = dict(phase="eigensolvers", model="ResNet18(width=64, num_classes=10)", n_data=512,
+               batch=128, dtype="float32", ts_fit_s=main["fit_s"],
+               ts_decompose_s=main["decompose_s"], ts_log_marglik=main["log_marglik"])
+
+    # 1. the pooled D&C through the user's entry point
+    la = KronLaplace(net, "classification", device=device)
+    latrd_panel.launches = latrd_panel_v4.launches = 0
+    retries0 = matrix.SYMEIG_RETRIES
+    matrix.EIGH_IMPLEMENTATION = "dc"
+    try:
+        t0 = time.perf_counter()
+        la.fit(loader)
+        torch.cuda.synchronize()
+        res["dc_fit_s"] = time.perf_counter() - t0
+    finally:
+        matrix.EIGH_IMPLEMENTATION = None
+    res["dc_decompose_s"] = la.fit_seconds["decompose"]
+    res["dc_ts_kernel_launches"] = latrd_panel.launches + latrd_panel_v4.launches
+    res["dc_symeig_retries"] = matrix.SYMEIG_RETRIES - retries0
+    res["dc_log_marglik"] = float(la.log_marginal_likelihood())
+    res["dc_lml_rel_diff"] = abs(res["dc_log_marglik"] - main["log_marglik"]) / abs(main["log_marglik"])
+    stacks = class_stacks(la.H_facs.kfacs)
+    refs = {n: torch.linalg.eigvalsh(st.double()) for n, (_, st) in stacks.items()}
+    dc_err, dc_recon = {}, {}
+    for n, (ks, st) in stacks.items():
+        lam = torch.stack([la.H.eigenvalues[gi][fi] for gi, fi in ks]).double()
+        Q = torch.stack([la.H.eigenvectors[gi][fi] for gi, fi in ks]).double()
+        ref = refs[n].clamp(min=0)
+        dc_err[n] = float(((lam - ref).abs().amax(1) / ref.abs().amax(1)).max())
+        Sd = st.double()
+        dc_recon[n] = float((torch.linalg.matrix_norm(Q @ torch.diag_embed(lam) @ Q.mT - Sd)
+                             / torch.linalg.matrix_norm(Sd)).max())
+    res.update(dc_eig_rel_err=dc_err, dc_recon_rel_err=dc_recon)
+
+    # 2. every class n >= 512 through the v3 and the v2 stage-1 kernels
+    for stage1, kernel in (("latrd_v3", latrd_panel_v3), ("latrd_v2", latrd_panel_v2)):
+        latrd_panel.launches = latrd_panel_v4.launches = 0
+        latrd_panel_v2.launches = latrd_panel_v3.launches = 0
+        errs, secs = {}, 0.0
+        for n, (_, st) in stacks.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lam, _ = eigh_stack_ts(st, stage1=stage1, device=device)
+            torch.cuda.synchronize()
+            secs += time.perf_counter() - t0
+            ref = refs[n]
+            errs[n] = float(((lam.double() - ref).abs().amax(1) / ref.abs().amax(1)).max())
+        res[f"{stage1}_eig_rel_err"] = errs
+        res[f"{stage1}_s"] = secs
+        res[f"{stage1}_launches"] = {"latrd_panel": latrd_panel.launches,
+                                     "latrd_panel_v4": latrd_panel_v4.launches,
+                                     "latrd_panel_v3": latrd_panel_v3.launches,
+                                     "latrd_panel_v2": latrd_panel_v2.launches}
+
+    # 3. float64 D&C on the card against the CPU: its default draws come
+    # from seeded CPU generators and are moved to the card, so both calls
+    # see the same numbers
+    S = stacks[576][1][:2].double()
+    (l_gpu, _), = eigh_pooled_dc([S], device=device)
+    (l_cpu, _), = eigh_pooled_dc([S.cpu()], device="cpu")
+    res["dc_f64_gpu_vs_cpu"] = float((l_gpu.cpu() - l_cpu).abs().max() / l_cpu.abs().max())
+    emit(res)
+
+    check(res["dc_ts_kernel_launches"] == 0,
+          f"the dc fit ran the two-stage kernels ({res['dc_ts_kernel_launches']} launches)")
+    check(res["dc_symeig_retries"] == 0, f"{res['dc_symeig_retries']} dc factors needed the symeig retry")
+    for n in stacks:
+        # held to the two-stage route's limits (the JAX package's float32
+        # oracle for its D&C is 5e-4); the D&C computes in float64
+        check(dc_err[n] <= EIG_TOL, f"dc eigenvalues at n={n} off by {dc_err[n]:.3e} > {EIG_TOL}")
+        check(dc_recon[n] <= RECON_TOL,
+              f"dc reconstruction at n={n}: {dc_recon[n]:.3e} > {RECON_TOL}")
+    check(res["dc_lml_rel_diff"] <= DC_LML_TOL,
+          f"dc marglik {res['dc_log_marglik']} vs ts {main['log_marglik']}")
+    for stage1, kernel in (("latrd_v3", "latrd_panel_v3"), ("latrd_v2", "latrd_panel_v2")):
+        for n, err in res[f"{stage1}_eig_rel_err"].items():
+            check(err <= EIG_TOL, f"{stage1} eigenvalues at n={n} off by {err:.3e} > {EIG_TOL}")
+        check(res[f"{stage1}_launches"][kernel] > 0, f"{stage1} did not launch {kernel}")
+    check(res["latrd_v2_launches"]["latrd_panel"] == 0, "the v2 run delegated to v1")
+    check(res["dc_f64_gpu_vs_cpu"] <= DC_F64_TOL,
+          f"float64 dc on the card vs the CPU: {res['dc_f64_gpu_vs_cpu']:.3e} > {DC_F64_TOL}")
+    return {"latrd_panel_v3": res["latrd_v3_launches"]["latrd_panel_v3"],
+            "latrd_panel_v2": res["latrd_v2_launches"]["latrd_panel_v2"]}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -500,14 +638,16 @@ def main() -> None:
                  if "registers" in ln or "spill" in ln] for n in _build.SOURCES}
     emit(dict(phase="build", seconds=build_s, ptxas=ptxas))
 
-    rows = [kernel_phase(name, mod, src, rep, K, n, args.seed, device)
-            for name, mod, src, rep, K, n in KERNELS]
+    rows = [kernel_phase(*row, args.seed, device) for row in KERNELS]
     rows.append(syrk_phase(args.seed, device))
     reference_phase(args.seed, device)
-    # each kernel's launches from the path that runs it: the LATRD panels
-    # from the all-weights main path, syrk from the last-layer FullLL fit
-    launches = main_path(args.seed, device)
+    # each kernel's launches from the path that runs it: v1 and v4 from the
+    # all-weights main path, syrk from the last-layer FullLL fit, v3 and v2
+    # from the eigensolvers phase
+    main = main_path(args.seed, device)
+    launches = dict(main["launches"])
     launches.update(last_layer_phase(args.seed, device))
+    launches.update(eigensolvers_phase(args.seed, device, main))
 
     keys = ("name", "route", "source", "replaces", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")

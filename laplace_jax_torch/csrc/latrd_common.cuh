@@ -1,4 +1,5 @@
-// Shared device code of the LATRD panel kernels (latrd.cu, latrd_v4.cu).
+// Shared device code of the LATRD panel kernels (latrd.cu, latrd_v2.cu,
+// latrd_v3.cu, latrd_v4.cu).
 //
 // One panel of blocked Householder tridiagonalization on a stack of K
 // symmetric windows Aw (K, m, m), row-major, for window-relative columns
@@ -13,12 +14,15 @@
 //               d, e, tau and v (row j of U), zero y;
 //   3. matvec   y = Aw v over the trailing rows/columns > c, plus blocks
 //               computing s = U v and t = W v for the j earlier rows
-//               (kernel-specific: latrd.cu reads full rows, latrd_v4.cu the
-//               lower triangle);
+//               (kernel-specific: latrd.cu and latrd_v2.cu read full rows,
+//               latrd_v3.cu and latrd_v4.cu the lower triangle);
 //   4. k_w      grid (m/64, K): w = tau (y - U^T t - W^T s) - tau/2 (w.v) v
 //               with w.v = tau (y.v - 2 s.t), written as row nb+j.
 //
 // Rows and columns at or past nv = n_real - q_base are padding (zero).
+// latrd_v2.cu changes step 1 (see there). Each library exports the sizes
+// of the scratch it indexes (`work_elems`, `part_elems`), and the caller
+// allocates from them.
 
 #pragma once
 
@@ -32,6 +36,12 @@ constexpr int kBlock = 256;               // threads of every kernel
 constexpr int kWarps = kBlock / 32;
 constexpr int kRows = 64;                 // rows per block in k_col / k_w
 constexpr int kGroups = kBlock / kRows;   // threads sharing one row's q-loop
+
+// row blocks of k_col / k_w, one partial sum of squares each per window
+__host__ __device__ inline int row_blocks(int m) { return (m + kRows - 1) / kRows; }
+
+// the `work` scratch of a kernel that needs none
+inline size_t no_work(int, int, int) { return 0; }
 
 template <typename T> struct Vec;         // 16-byte vector of T
 template <> struct Vec<float> { using type = float4; static constexpr int n = 4; };
@@ -61,10 +71,11 @@ struct Panel {
   T* UW;        // (K, 2nb, m): rows [0, nb) reflectors v_j, [nb, 2nb) w_j
   T* det;       // (K, 3, nb): d, e, tau
   T* col;       // (K, m) corrected column
-  T* part;      // (K, m/kRows) partial sums of squares
+  T* part;      // (K, row_blocks(m)) partial sums of squares
   T* y;         // (K, m) trailing matvec
   T* st;        // (K, 2nb): U v in [0, nb), W v in [nb, 2nb)
   T* scal;      // (K, 4): tau
+  T* work;      // kernel-specific scratch (latrd_v2.cu, latrd_v3.cu)
   int K, m, nb, nrb;
   int q_base, n_real;
   int nv;       // valid rows/columns of the window
@@ -109,8 +120,13 @@ __device__ __forceinline__ T warp_dot(const T* a, const T* v, int l0, int lend) 
 template <typename T>
 __device__ __forceinline__ int vec_floor(int l) { return (l / Vec<T>::n) * Vec<T>::n; }
 
+// Step 1 for column c: col[i] = row[i] - sum_{q0 <= q < j} (U[q, i] W[q, c]
+// + W[q, i] U[q, c]) for rows i >= c, where `row` (window k at row +
+// k * row_kstride) is window row c (== column c: the window is symmetric),
+// q0 = 0; latrd_v2.cu passes that row already corrected for q < q0.
 template <typename T>
-__global__ void __launch_bounds__(kBlock) k_col(Panel<T> p, int c, int j) {
+__global__ void __launch_bounds__(kBlock)
+k_col(Panel<T> p, int c, int j, const T* row, size_t row_kstride, int q0) {
   __shared__ T red[kGroups][kRows];
   __shared__ T sh[kWarps + 1];
   const int k = blockIdx.y, r = threadIdx.x % kRows, g = threadIdx.x / kRows;
@@ -124,7 +140,7 @@ __global__ void __launch_bounds__(kBlock) k_col(Panel<T> p, int c, int j) {
   const T* W = U + (size_t)p.nb * mm;
   T corr = 0;
   if (i < p.m && i >= c && i < p.nv)
-    for (int q = g; q < j; q += kGroups)
+    for (int q = q0 + g; q < j; q += kGroups)
       corr += U[q * mm + i] * W[q * mm + c] + W[q * mm + i] * U[q * mm + c];
   red[g][r] = corr;
   __syncthreads();
@@ -133,7 +149,7 @@ __global__ void __launch_bounds__(kBlock) k_col(Panel<T> p, int c, int j) {
     T val = 0;
     if (i < p.nv) {
       for (int h = 1; h < kGroups; ++h) corr += red[h][r];
-      val = p.Aw[((size_t)k * mm + c) * mm + i] - corr;  // row c == column c
+      val = row[k * row_kstride + i] - corr;
     }
     p.col[k * mm + i] = val;
     if (i > c) sq = mul_rn(val, val);
@@ -226,14 +242,39 @@ __global__ void __launch_bounds__(kBlock) k_w(Panel<T> p, int c, int j) {
   p.UW[((size_t)k * 2 * p.nb + p.nb + j) * mm + i] = wi;
 }
 
+// Full-row trailing matvec (latrd.cu, latrd_v2.cu): one warp per trailing
+// row i > c reads the row's columns > c with 16-byte loads (v is zero at
+// and above c, so the read starts at the vector holding c+1) and writes
+// y[i]; blocks past the rows compute the 2j dot products U v and W v.
 template <typename T>
-using MatvecLauncher = cudaError_t (*)(const Panel<T>&, int c, int j, cudaStream_t);
+__global__ void __launch_bounds__(kBlock)
+k_matvec_rows(Panel<T> p, int c, int j, int nrow) {
+  if ((int)blockIdx.x >= nrow) {
+    dots_block(p, c, j, blockIdx.x - nrow);
+    return;
+  }
+  const int i = c + 1 + blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (i >= p.nv) return;
+  const int k = blockIdx.y;
+  const size_t mm = p.m;
+  const T* v = p.UW + ((size_t)k * 2 * p.nb + j) * mm;
+  const T s = warp_dot(p.Aw + ((size_t)k * mm + i) * mm, v, vec_floor<T>(c + 1), p.lend);
+  if ((threadIdx.x & 31) == 0) p.y[k * mm + i] = s;
+}
 
-// The whole panel: nb columns of four launches each.
 template <typename T>
-cudaError_t run_panel(const void* Aw, void* UW, void* det, void* col, void* part,
-                      void* y, void* st, void* scal, int K, int m, int nb, int off,
-                      int q_base, int n_real, void* stream, MatvecLauncher<T> matvec) {
+cudaError_t matvec_rows(const Panel<T>& p, int c, int j, cudaStream_t s) {
+  const int nrow = p.nv > c + 1 ? (p.nv - c - 1 + kWarps - 1) / kWarps : 0;
+  const int ndot = (2 * j + kWarps - 1) / kWarps;
+  if (nrow + ndot == 0) return cudaSuccess;
+  k_matvec_rows<T><<<dim3(nrow + ndot, p.K), kBlock, 0, s>>>(p, c, j, nrow);
+  return cudaGetLastError();
+}
+
+template <typename T>
+Panel<T> make_panel(const void* Aw, void* UW, void* det, void* col, void* part, void* y,
+                    void* st, void* scal, void* work, int K, int m, int nb, int q_base,
+                    int n_real) {
   Panel<T> p;
   p.Aw = static_cast<const T*>(Aw);
   p.UW = static_cast<T*>(UW);
@@ -243,23 +284,34 @@ cudaError_t run_panel(const void* Aw, void* UW, void* det, void* col, void* part
   p.y = static_cast<T*>(y);
   p.st = static_cast<T*>(st);
   p.scal = static_cast<T*>(scal);
+  p.work = static_cast<T*>(work);
   p.K = K;
   p.m = m;
   p.nb = nb;
-  p.nrb = (m + kRows - 1) / kRows;
+  p.nrb = row_blocks(m);
   p.q_base = q_base;
   p.n_real = n_real;
   p.nv = n_real - q_base < m ? n_real - q_base : m;
   p.lend = ((p.nv + Vec<T>::n - 1) / Vec<T>::n) * Vec<T>::n;
   if (p.lend > m) p.lend = m;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 rows(p.nrb, K);
+  return p;
+}
+
+template <typename T>
+using MatvecLauncher = cudaError_t (*)(const Panel<T>&, int c, int j, cudaStream_t);
+
+// The whole panel as latrd.cu, latrd_v3.cu and latrd_v4.cu run it: nb
+// columns of k_col, k_house, the kernel's matvec and k_w.
+template <typename T>
+cudaError_t run_columns(const Panel<T>& p, int off, cudaStream_t s, MatvecLauncher<T> matvec) {
+  const dim3 rows(p.nrb, p.K);
+  const size_t mm = p.m;
   cudaError_t err;
-  for (int j = 0; j < nb; ++j) {
+  for (int j = 0; j < p.nb; ++j) {
     const int c = off + j;
-    k_col<T><<<rows, kBlock, 0, s>>>(p, c, j);
+    k_col<T><<<rows, kBlock, 0, s>>>(p, c, j, p.Aw + c * mm, mm * mm, 0);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    k_house<T><<<K, kBlock, 0, s>>>(p, c, j);
+    k_house<T><<<p.K, kBlock, 0, s>>>(p, c, j);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
     if ((err = matvec(p, c, j, s)) != cudaSuccess) return err;
     k_w<T><<<rows, kBlock, 0, s>>>(p, c, j);
@@ -270,21 +322,31 @@ cudaError_t run_panel(const void* Aw, void* UW, void* det, void* col, void* part
 
 }  // namespace latrd
 
-// The C interface of each library (one per kernel source).
-#define LATRD_EXPORTS(LAUNCHER)                                                     \
+// The C interface of each library (one per kernel source): RUN<T>(panel,
+// off, stream) runs the whole panel; WORK(K, m, nb) is the length of its
+// `work` scratch and part_elems(K, m) that of `part`, in elements.
+#define LATRD_EXPORTS(RUN, WORK)                                                    \
   extern "C" int panel_f32(const void* Aw, void* UW, void* det, void* col,        \
-                           void* part, void* y, void* st, void* scal, int K, int m, \
-                           int nb, int off, int q_base, int n_real, void* stream) { \
-    return (int)latrd::run_panel<float>(Aw, UW, det, col, part, y, st, scal, K, m, \
-                                        nb, off, q_base, n_real, stream,            \
-                                        LAUNCHER<float>);                           \
+                           void* part, void* y, void* st, void* scal, void* work,   \
+                           int K, int m, int nb, int off, int q_base, int n_real,   \
+                           void* stream) {                                          \
+    return (int)RUN<float>(latrd::make_panel<float>(Aw, UW, det, col, part, y, st,  \
+                                                    scal, work, K, m, nb, q_base,   \
+                                                    n_real),                        \
+                           off, static_cast<cudaStream_t>(stream));                 \
   }                                                                                 \
   extern "C" int panel_f64(const void* Aw, void* UW, void* det, void* col,        \
-                           void* part, void* y, void* st, void* scal, int K, int m, \
-                           int nb, int off, int q_base, int n_real, void* stream) { \
-    return (int)latrd::run_panel<double>(Aw, UW, det, col, part, y, st, scal, K,  \
-                                         m, nb, off, q_base, n_real, stream,        \
-                                         LAUNCHER<double>);                         \
+                           void* part, void* y, void* st, void* scal, void* work,   \
+                           int K, int m, int nb, int off, int q_base, int n_real,   \
+                           void* stream) {                                          \
+    return (int)RUN<double>(latrd::make_panel<double>(Aw, UW, det, col, part, y,    \
+                                                      st, scal, work, K, m, nb,     \
+                                                      q_base, n_real),              \
+                            off, static_cast<cudaStream_t>(stream));                \
+  }                                                                                 \
+  extern "C" size_t work_elems(int K, int m, int nb) { return WORK(K, m, nb); }     \
+  extern "C" size_t part_elems(int K, int m) {                                      \
+    return (size_t)K * latrd::row_blocks(m);                                        \
   }                                                                                 \
   extern "C" const char* error_string(int e) {                                     \
     return cudaGetErrorString(static_cast<cudaError_t>(e));                         \

@@ -99,6 +99,11 @@ cudaError_t launch_matvec(const latrd::Panel<T>& p, int c, int j, cudaStream_t s
   return cudaGetLastError();
 }
 
+template <typename T>
+cudaError_t run(const latrd::Panel<T>& p, int off, cudaStream_t s) {
+  return latrd::run_columns<T>(p, off, s, launch_matvec<T>);
+}
+
 }  // namespace
 
-LATRD_EXPORTS(launch_matvec)
+LATRD_EXPORTS(run, latrd::no_work)

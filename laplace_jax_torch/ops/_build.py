@@ -25,15 +25,21 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD = Path(__file__).resolve().parents[2] / "build"
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-# Aw, UW, det, col, part, y, st, scal, K, m, nb, off, q_base, n_real, stream
-_PANEL = [_P] * 8 + [_I] * 6 + [_P]
-_SYRK = [_P, _P, _I, _I, _P]  # A, H, R, P, stream
-# each source's C entry points and their argument types; every library
-# also exports `error_string(int)`
+_P, _I, _Z = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
+# Aw, UW, det, col, part, y, st, scal, work, K, m, nb, off, q_base, n_real, stream
+_PANEL = (_I, [_P] * 9 + [_I] * 6 + [_P])
+# a panel library: the two panels and its scratch sizes in elements,
+# work_elems(K, m, nb) and part_elems(K, m)
+_PANEL_LIB = {"panel_f32": _PANEL, "panel_f64": _PANEL,
+              "work_elems": (_Z, [_I] * 3), "part_elems": (_Z, [_I] * 2)}
+_SYRK = (_I, [_P, _P, _I, _I, _P])  # A, H, R, P, stream
+# each source's C entry points, as (result type, argument types); every
+# library also exports `error_string(int)`
 SIGNATURES = {
-    "latrd": {"panel_f32": _PANEL, "panel_f64": _PANEL},
-    "latrd_v4": {"panel_f32": _PANEL, "panel_f64": _PANEL},
+    "latrd": _PANEL_LIB,
+    "latrd_v4": _PANEL_LIB,
+    "latrd_v3": _PANEL_LIB,
+    "latrd_v2": _PANEL_LIB,
     "syrk": {"syrk_f32": _SYRK, "syrk_f64": _SYRK},
 }
 SOURCES = tuple(SIGNATURES)
@@ -97,10 +103,10 @@ def load(name: str) -> ctypes.CDLL:
     if name not in _libs:
         build_all([name])
         lib = ctypes.CDLL(str(_target(name)))
-        for fn, argtypes in SIGNATURES[name].items():
+        for fn, (restype, argtypes) in SIGNATURES[name].items():
             f = getattr(lib, fn)
             f.argtypes = argtypes
-            f.restype = _I
+            f.restype = restype
         lib.error_string.argtypes = [_I]
         lib.error_string.restype = ctypes.c_char_p
         _libs[name] = lib

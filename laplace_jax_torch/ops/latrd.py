@@ -30,6 +30,17 @@ def latrd_panel_plain(Aw, off: int, q_base: int, n_real: int, nb: int):
     return panel_plain(Aw, off, q_base, n_real, nb)
 
 
+def panel_buffers(lib, K: int, m: int, nb: int, dtype, device) -> dict:
+    """The outputs and scratch of one panel launch, in the order of the C
+    interface; the library gives the sizes of the scratch it indexes."""
+    kw = dict(dtype=dtype, device=device)
+    return dict(UW=torch.empty(K, 2 * nb, m, **kw), det=torch.empty(K, 3, nb, **kw),
+                col=torch.empty(K, m, **kw), part=torch.empty(lib.part_elems(K, m), **kw),
+                y=torch.empty(K, m, **kw), st=torch.empty(K, 2 * nb, **kw),
+                scal=torch.empty(K, 4, **kw),
+                work=torch.empty(max(lib.work_elems(K, m, nb), 1), **kw))
+
+
 def launch_panel(lib_name: str, Aw, off: int, q_base: int, n_real: int, nb: int):
     """Check the window and run one panel of the library's kernel on
     PyTorch's current stream; returns (UW, det) as in the contract."""
@@ -44,22 +55,14 @@ def launch_panel(lib_name: str, Aw, off: int, q_base: int, n_real: int, nb: int)
                          f"(m={m}, off={off}, nb={nb})")
     lib = _build.load(lib_name)
     fn = lib.panel_f32 if Aw.dtype == torch.float32 else lib.panel_f64
-    kw = dict(dtype=Aw.dtype, device=Aw.device)
-    UW = torch.empty(K, 2 * nb, m, **kw)
-    det = torch.empty(K, 3, nb, **kw)
-    col = torch.empty(K, m, **kw)
-    y = torch.empty(K, m, **kw)
-    part = torch.empty(K, _cdiv(m, 256), **kw)
-    st = torch.empty(K, 2 * nb, **kw)
-    scal = torch.empty(K, 4, **kw)
+    buf = panel_buffers(lib, K, m, nb, Aw.dtype, Aw.device)
     stream = torch.cuda.current_stream(Aw.device).cuda_stream
-    rc = fn(Aw.data_ptr(), UW.data_ptr(), det.data_ptr(), col.data_ptr(),
-            part.data_ptr(), y.data_ptr(), st.data_ptr(), scal.data_ptr(),
+    rc = fn(Aw.data_ptr(), *(b.data_ptr() for b in buf.values()),
             K, m, nb, off, q_base, n_real, stream)
     if rc != 0:
         raise RuntimeError(f"{lib_name} panel launch failed: "
                            f"{lib.error_string(rc).decode()}")
-    return UW, det
+    return buf["UW"], buf["det"]
 
 
 def latrd_panel(Aw, off: int, q_base: int, n_real: int, nb: int):

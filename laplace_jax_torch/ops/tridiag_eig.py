@@ -12,7 +12,10 @@ package's `fori_loop`s.
 
 `eigh_stack_ts` picks stage 1 as the JAX package does: on CUDA the LATRD
 panel kernel (`ops/latrd.py`) for 512 <= n < 2304 and the symmetric-half
-kernel (`ops/latrd_v4.py`) for n >= 2304, otherwise the plain stage 1.
+kernel (`ops/latrd_v4.py`) for n >= 2304, otherwise the plain stage 1. The
+v3 and v2 kernels (`ops/latrd_v3.py`, `ops/latrd_v2.py`) run only when
+asked for by name, as their JAX counterparts are never picked
+automatically.
 """
 
 from __future__ import annotations
@@ -23,6 +26,8 @@ import numpy as np
 import torch
 
 from laplace_jax_torch.ops.latrd import tridiagonalize_latrd
+from laplace_jax_torch.ops.latrd_v2 import tridiagonalize_latrd_v2
+from laplace_jax_torch.ops.latrd_v3 import tridiagonalize_latrd_v3
 from laplace_jax_torch.ops.latrd_v4 import tridiagonalize_latrd_v4
 from laplace_jax_torch.ops.tridiag import apply_q, tridiagonalize
 from laplace_jax_torch.utils.device import full_f32_matmuls, resolve_device
@@ -327,10 +332,16 @@ def tridiag_eigh(d: torch.Tensor, e: torch.Tensor):
     return D[:, 0, :n], Uf
 
 
+# stage-1 drivers by name: the CUDA panel kernels and the plain stage 1
+STAGE1 = {"latrd": tridiagonalize_latrd, "latrd_v4": tridiagonalize_latrd_v4,
+          "latrd_v3": tridiagonalize_latrd_v3, "latrd_v2": tridiagonalize_latrd_v2,
+          "plain": tridiagonalize}
+
+
 def _stage1_impl(n: int, stage1: str, device: torch.device) -> str:
-    """Stage-1 implementation: "latrd" (CUDA panel kernel), "latrd_v4"
-    (CUDA symmetric-half kernel) or "plain"; "auto" follows the JAX
-    package's thresholds on CUDA and takes "plain" elsewhere."""
+    """Stage-1 implementation, a name in `STAGE1`; "auto" follows the JAX
+    package's thresholds on CUDA (v1 for 512 <= n < 2304, v4 above) and
+    takes "plain" elsewhere."""
     if stage1 != "auto":
         return stage1
     if device.type != "cuda" or n < 512:
@@ -344,21 +355,17 @@ def eigh_stack_ts(stack: torch.Tensor, nb: int = 64, stage1: str = "auto", devic
     back-transform. Ascending eigenvalues, orthonormal eigenvectors.
 
     Runs on `device` (CUDA unless the caller asks for the CPU). `stage1`:
-    "auto", "latrd", "latrd_v4" or "plain"; the kernel routes take their
-    plain PyTorch panels when the stack lies on the CPU.
+    "auto" or a name in `STAGE1` ("latrd", "latrd_v4", "latrd_v3",
+    "latrd_v2", "plain"); the kernel routes take their plain PyTorch panels
+    when the stack lies on the CPU.
     """
     dev = resolve_device(device)
     stack = stack.to(dev)
     full_f32_matmuls()
     n = stack.shape[-1]
     impl = _stage1_impl(n, stage1, dev)
-    if impl == "latrd":
-        d, e, V, taus = tridiagonalize_latrd(stack, nb=nb)
-    elif impl == "latrd_v4":
-        d, e, V, taus = tridiagonalize_latrd_v4(stack, nb=nb)
-    elif impl == "plain":
-        d, e, V, taus = tridiagonalize(stack, nb=nb)
-    else:
+    if impl not in STAGE1:
         raise ValueError(f"Unknown stage1 {stage1!r}.")
+    d, e, V, taus = STAGE1[impl](stack, nb=nb)
     lam, Ut = tridiag_eigh(d, e)
     return lam, apply_q(V, taus, Ut, nb=nb)

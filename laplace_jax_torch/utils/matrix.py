@@ -9,10 +9,13 @@ is the 1-factor group ``(F,)``.
 `Kron.decompose` sends each same-shape stack of factors to the two-stage
 eigensolver `eigh_stack_ts` on CUDA (float32/float64, n >= 512) and to
 `torch.linalg.eigh` otherwise, as the JAX package sends them to its
-two-stage solver on an accelerator and to LAPACK on the CPU. Each factor's
-output is checked for NaN; a bad factor takes the `symeig` jitter retry,
-and `SYMEIG_RETRIES` counts those factors, so an eigensolver kernel that
-returns NaN cannot hide behind the retry.
+two-stage solver on an accelerator and to LAPACK on the CPU. With
+`EIGH_IMPLEMENTATION = "dc"` every CUDA class with n >= 512 of one dtype
+goes instead to one pooled spectral divide-and-conquer call
+(`ops/eigh_dc.eigh_pooled_dc`). Each factor's output is checked for NaN; a
+bad factor takes the `symeig` jitter retry, and `SYMEIG_RETRIES` counts
+those factors, so an eigensolver that returns NaN cannot hide behind the
+retry.
 """
 
 from __future__ import annotations
@@ -21,34 +24,61 @@ from typing import Sequence
 
 import torch
 
+from laplace_jax_torch.ops.eigh_dc import eigh_pooled_dc
 from laplace_jax_torch.ops.tridiag_eig import eigh_stack_ts
 from laplace_jax_torch.utils.linalg import symeig
 
 __all__ = ["Kron", "KronDecomposed"]
 
-# below this size the two-stage path's fixed costs do not pay (the JAX
-# package's `_TS_MIN_SIZE`)
+# Eigensolver of `Kron.decompose` on CUDA: None or "ts" (the two-stage
+# solver, the default), or "dc" (the pooled spectral divide-and-conquer).
+# The JAX package's "qdwh" and "jacobi" name XLA's own eigh solvers, which
+# PyTorch does not have: they raise.
+EIGH_IMPLEMENTATION: str | None = None
+
+# below these sizes the two-stage and the D&C paths' fixed costs do not pay
+# (the JAX package's `_TS_MIN_SIZE`, `_DC_MIN_SIZE`)
 _TS_MIN_SIZE = 512
+_DC_MIN_SIZE = 512
 
 # factors sent to the `symeig` retry by `Kron.decompose` in this process
 SYMEIG_RETRIES = 0
 
 
+def _check_implementation() -> None:
+    if EIGH_IMPLEMENTATION in ("qdwh", "jacobi"):
+        raise ValueError(
+            f"EIGH_IMPLEMENTATION={EIGH_IMPLEMENTATION!r} selects one of XLA's own eigh "
+            "solvers, which have no PyTorch counterpart; use None/'ts' or 'dc'.")
+    if EIGH_IMPLEMENTATION not in (None, "ts", "dc"):
+        raise ValueError(f"Unknown EIGH_IMPLEMENTATION {EIGH_IMPLEMENTATION!r}; "
+                         "use None, 'ts' or 'dc'.")
+
+
+def _use_dc(stack: torch.Tensor) -> bool:
+    return (stack.is_cuda and EIGH_IMPLEMENTATION == "dc"
+            and stack.shape[-1] >= _DC_MIN_SIZE)
+
+
 def _use_ts(stack: torch.Tensor) -> bool:
-    return (stack.is_cuda and stack.shape[-1] >= _TS_MIN_SIZE
+    return (EIGH_IMPLEMENTATION in (None, "ts") and stack.is_cuda
+            and stack.shape[-1] >= _TS_MIN_SIZE
             and stack.dtype in (torch.float32, torch.float64))
 
 
-def _batched_eigh_clipped(stack: torch.Tensor):
-    """Eigendecompose a (k, n, n) stack; returns clipped eigenvalues,
-    NaN-cleaned vectors and per-factor NaN flags on the raw output."""
-    stack = (stack + stack.mT) / 2
-    if _use_ts(stack):
-        l, Q = eigh_stack_ts(stack, device=stack.device)
-    else:
-        l, Q = torch.linalg.eigh(stack)
+def _clip_flags(l: torch.Tensor, Q: torch.Tensor):
+    """Clipped eigenvalues, NaN-cleaned vectors and per-factor NaN flags on
+    the raw output."""
     flags = torch.isnan(l).any(1) | torch.isnan(Q).any(2).any(1)
     return torch.nan_to_num(l.clamp(min=0.0)), torch.nan_to_num(Q), flags
+
+
+def _batched_eigh_clipped(stack: torch.Tensor):
+    """Eigendecompose a (k, n, n) stack, as `_clip_flags` returns it."""
+    stack = (stack + stack.mT) / 2
+    if _use_ts(stack):
+        return _clip_flags(*eigh_stack_ts(stack, device=stack.device))
+    return _clip_flags(*torch.linalg.eigh(stack))
 
 
 def broadcast_groups(values: torch.Tensor, sizes) -> torch.Tensor:
@@ -86,22 +116,36 @@ class Kron:
         return _group_sizes(self.kfacs)
 
     def decompose(self, damping: bool = False) -> "KronDecomposed":
-        """Eigendecompose every factor, one batched call per (shape, dtype)."""
+        """Eigendecompose every factor, one batched call per (shape, dtype),
+        or, with `EIGH_IMPLEMENTATION = "dc"`, one pooled D&C call for all
+        eligible classes of each dtype."""
+        _check_implementation()
         by_shape: dict = {}
         for gi, F in enumerate(self.kfacs):
             for fi, H in enumerate(F):
                 by_shape.setdefault((tuple(H.shape), H.dtype), []).append((gi, fi))
-        global SYMEIG_RETRIES
         results = {}
-        for keys in by_shape.values():
-            stack = torch.stack([self.kfacs[gi][fi] for gi, fi in keys])
-            ls, Qs, flags = _batched_eigh_clipped(stack)
+
+        def collect(keys, ls, Qs, flags):
+            global SYMEIG_RETRIES
             for j, (key, bad) in enumerate(zip(keys, flags.tolist())):
                 gi, fi = key
                 results[key] = (ls[j], Qs[j])
                 if bad:
                     SYMEIG_RETRIES += 1
                     results[key] = symeig(self.kfacs[gi][fi])
+
+        dc_by_dtype: dict = {}
+        for keys in by_shape.values():
+            stack = torch.stack([self.kfacs[gi][fi] for gi, fi in keys])
+            if _use_dc(stack):
+                dc_by_dtype.setdefault(stack.dtype, []).append((keys, stack))
+                continue
+            collect(keys, *_batched_eigh_clipped(stack))
+        for pool in dc_by_dtype.values():
+            outs = eigh_pooled_dc([stack for _, stack in pool], device=pool[0][1].device)
+            for (keys, _), (l, Q) in zip(pool, outs):
+                collect(keys, *_clip_flags(l, Q))
         eigvecs = [tuple(results[(gi, fi)][1] for fi in range(len(F)))
                    for gi, F in enumerate(self.kfacs)]
         eigvals = [tuple(results[(gi, fi)][0] for fi in range(len(F)))

@@ -1,5 +1,5 @@
-"""The CUDA kernels (LATRD panels, syrk) against their plain PyTorch
-versions, on the card.
+"""The CUDA kernels (LATRD panels v1, v2, v3, v4, syrk) against their plain
+PyTorch versions, and the pooled spectral D&C, on the card.
 
 These tests need a CUDA device (the kernels have no CPU mode) and skip
 without one. Run them on a machine with the card:
@@ -11,7 +11,8 @@ They import no JAX: the reference is the port's plain versions, which
 JAX package on the CPU. Tolerances, relative to each output's largest
 entry: float64 1e-10 (only the summation order differs); float32 2e-4 for
 the panels (order, and the v4 kernel's atomics, whose order changes from
-run to run) and 1e-4 for syrk (order over up to 1280 rows).
+run to run; v3 sums in one fixed order and repeats bitwise) and 1e-4 for
+syrk (order over up to 1280 rows).
 """
 
 import numpy as np
@@ -19,6 +20,16 @@ import pytest
 import torch
 
 from laplace_jax_torch.ops.latrd import latrd_panel, latrd_panel_plain, tridiagonalize_latrd
+from laplace_jax_torch.ops.latrd_v2 import (
+    latrd_panel_v2,
+    latrd_panel_v2_plain,
+    tridiagonalize_latrd_v2,
+)
+from laplace_jax_torch.ops.latrd_v3 import (
+    latrd_panel_v3,
+    latrd_panel_v3_plain,
+    tridiagonalize_latrd_v3,
+)
 from laplace_jax_torch.ops.latrd_v4 import (
     latrd_panel_v4,
     latrd_panel_v4_plain,
@@ -33,7 +44,9 @@ torch.set_num_threads(1)
 pytestmark = pytest.mark.cuda
 
 PANELS = [pytest.param(latrd_panel, latrd_panel_plain, id="v1"),
-          pytest.param(latrd_panel_v4, latrd_panel_v4_plain, id="v4")]
+          pytest.param(latrd_panel_v4, latrd_panel_v4_plain, id="v4"),
+          pytest.param(latrd_panel_v3, latrd_panel_v3_plain, id="v3"),
+          pytest.param(latrd_panel_v2, latrd_panel_v2_plain, id="v2")]
 
 
 @pytest.fixture
@@ -68,7 +81,8 @@ def test_panel_matches_plain(cuda, kernel, plain, dtype, tol, off, q_base):
         torch.testing.assert_close(g.cpu(), r, atol=tol * float(r.abs().max()), rtol=0)
 
 
-@pytest.mark.parametrize("driver", [tridiagonalize_latrd, tridiagonalize_latrd_v4])
+@pytest.mark.parametrize("driver", [tridiagonalize_latrd, tridiagonalize_latrd_v4,
+                                    tridiagonalize_latrd_v3, tridiagonalize_latrd_v2])
 def test_stage1_invariants(cuda, driver):
     n = 600
     A = torch.as_tensor(np.random.default_rng(5).standard_normal((2, n, n)))
@@ -81,19 +95,69 @@ def test_stage1_invariants(cuda, driver):
                                atol=1e-10, rtol=0)
 
 
-@pytest.mark.parametrize("n,kernel", [(520, latrd_panel), (2304, latrd_panel_v4)])
-def test_eigh_stack_ts_dispatches_to_kernel(cuda, n, kernel):
+@pytest.mark.parametrize("n,kernel,stage1", [(520, latrd_panel, "auto"),
+                                             (2304, latrd_panel_v4, "auto"),
+                                             (1152, latrd_panel_v3, "latrd_v3"),
+                                             (1152, latrd_panel_v2, "latrd_v2")])
+def test_eigh_stack_ts_dispatches_to_kernel(cuda, n, kernel, stage1):
     from laplace_jax_torch.ops.tridiag_eig import eigh_stack_ts
 
     gen = torch.Generator(device=cuda).manual_seed(n)
     A = torch.randn(2, n, n, generator=gen, device=cuda)
     A = (A + A.mT) / 2
     launches = kernel.launches
-    lam, Q = eigh_stack_ts(A)
+    lam, Q = eigh_stack_ts(A, stage1=stage1)
     assert kernel.launches > launches
     ref = torch.linalg.eigvalsh(A.double())
     # float32 stage 2 reads ~5e-6 here, and rarely several times that
     assert float((lam.double() - ref).abs().max() / ref.abs().max()) < 1e-4
+
+
+def test_v3_repeats_bitwise(cuda):
+    """Two v3 launches on one float32 window give the same bits: its
+    matvec sums every tile pair in one fixed order, with no atomics."""
+    A = _window(6, 3, 1152, 1150, torch.float32).to(cuda)
+    first = latrd_panel_v3(A, 0, 0, 1150, 64)
+    second = latrd_panel_v3(A, 0, 0, 1150, 64)
+    torch.cuda.synchronize()
+    for g, r in zip(first, second):
+        assert torch.equal(g, r)
+
+
+@pytest.mark.parametrize("lib_name", ["latrd", "latrd_v4", "latrd_v3", "latrd_v2"])
+def test_panel_writes_stay_inside_the_scratch_it_declares(cuda, lib_name):
+    """Each panel library sizes its own `part` and `work` scratch
+    (`part_elems`, `work_elems`): a guard placed past each keeps its
+    bits through a whole panel."""
+    from laplace_jax_torch.ops import _build
+    from laplace_jax_torch.ops.latrd import panel_buffers
+
+    K, m, nb, guard, mark = 3, 384, 64, 4096, 1234.5
+    A = _window(7, K, m, m - 5, torch.float32).to(cuda)
+    lib = _build.load(lib_name)
+    buf = panel_buffers(lib, K, m, nb, A.dtype, cuda)
+    sizes = {key: buf[key].numel() for key in ("part", "work")}
+    for key, n in sizes.items():
+        buf[key] = torch.full((n + guard,), mark, device=cuda)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    assert lib.panel_f32(A.data_ptr(), *(b.data_ptr() for b in buf.values()),
+                         K, m, nb, 0, 0, m - 5, stream) == 0
+    torch.cuda.synchronize()
+    for key, n in sizes.items():
+        assert bool((buf[key][n:] == mark).all()), f"{lib_name} wrote past {key}"
+
+
+def test_eigh_stack_dc_on_card_matches_eigvalsh(cuda):
+    from laplace_jax_torch.ops.eigh_dc import eigh_stack_dc
+
+    rng = np.random.default_rng(8)
+    Q = np.linalg.qr(rng.standard_normal((2, 600, 600)))[0]
+    lam = np.exp(-np.linspace(0.0, 8.0, 600))[None] * (1 + rng.random((2, 600)))
+    A = torch.as_tensor(np.einsum("kij,kj,klj->kil", Q, lam, Q)).to(cuda)
+    A = (A + A.mT) / 2
+    vals, vecs = eigh_stack_dc(A)
+    torch.testing.assert_close(vals, torch.linalg.eigvalsh(A), atol=1e-10, rtol=0)
+    torch.testing.assert_close(vecs @ torch.diag_embed(vals) @ vecs.mT, A, atol=1e-10, rtol=0)
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
@@ -104,6 +168,8 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         latrd_panel(A.mT, 0, 0, 128, 8)  # not contiguous
     with pytest.raises(ValueError):
         latrd_panel_v4(A[:, :100, :100].contiguous(), 0, 0, 100, 8)  # m % 64
+    with pytest.raises(ValueError):
+        latrd_panel_v2(A, 4, 0, 128, 8)  # off % 8
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10), (torch.float32, 1e-4)])
