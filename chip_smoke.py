@@ -23,7 +23,12 @@ Phases, each printing one JSON line; any failed check exits non-zero:
              (width 64, 10 classes, 11.16M weights) over 512 CIFAR-10-shaped
              inputs in batches of 128, marglik prior tuning, and the GLM
              probit predictive on 8 inputs, with both LATRD kernels' launch
-             counts read from this run;
+             counts read from this run and every panel it launched tallied
+             by (K, m, off);
+   windows - each panel the main path launched, on a random window of its
+             (K, m) at its offset, timed 5 times with CUDA events: the v4
+             and v1 rows gain `ms_by_window` and `main_path_ms` (the sum
+             over the main path's launches);
 6. last_layer - last-layer Laplace on the same network and data: the
              default `Laplace(net, "classification")` (KronLL, v1 kernel),
              FullLL (the syrk kernel, 4 launches; its GGN against a float64
@@ -38,7 +43,8 @@ Phases, each printing one JSON line; any failed check exits non-zero:
              (their launches read here); and a float64 (2, 576) D&C on the
              card against the same call on the CPU.
 
-Then the kernel summary line, the `nvidia-smi` line, and last
+Then the kernel summary line (with `main_path_ms` where measured), the
+`nvidia-smi` line, and last
 `{"ok": true, "device": {...}}`. Without a CUDA device, or outside the
 repository checkout, it exits non-zero and prints no result.
 """
@@ -309,6 +315,47 @@ def full_width(seed):
     return net, ArrayLoader(X, y, batch_size=128), X_test
 
 
+MAIN_PANELS = {"latrd_panel": "latrd", "latrd_panel_v4": "latrd_v4"}  # wrapper -> module
+
+
+def panel_module(name):
+    import importlib
+
+    return importlib.import_module(f"laplace_jax_torch.ops.{MAIN_PANELS[name]}")
+
+
+class PanelTally:
+    """Within `with`, each main-path stage-1 driver (`tridiagonalize_latrd`,
+    `tridiagonalize_latrd_v4`) hands `tridiagonalize_windows` its panel
+    wrapped so that every panel it runs is tallied by (K, m, off, nb); the
+    panel wrappers and their launch counts are untouched."""
+
+    def __init__(self):
+        self.counts = {name: {} for name in MAIN_PANELS}
+        self.inner = {}
+
+    def __enter__(self):
+        for name in MAIN_PANELS:
+            mod, tally = panel_module(name), self.counts[name]
+            inner = mod.tridiagonalize_windows
+
+            def windows(A, nb, S, panel, inner=inner, tally=tally):
+                def counted(Aw, off, q_base, n_real, nb):
+                    key = (Aw.shape[0], Aw.shape[1], off, nb)
+                    tally[key] = tally.get(key, 0) + 1
+                    return panel(Aw, off, q_base, n_real, nb)
+
+                return inner(A, nb, S, counted)
+
+            self.inner[name] = inner
+            mod.tridiagonalize_windows = windows
+        return self
+
+    def __exit__(self, *exc):
+        for name, inner in self.inner.items():
+            panel_module(name).tridiagonalize_windows = inner
+
+
 def main_path(seed, device):
     import torch
 
@@ -323,7 +370,8 @@ def main_path(seed, device):
     latrd_panel.launches = latrd_panel_v4.launches = 0
     retries0 = matrix.SYMEIG_RETRIES
     t0 = time.perf_counter()
-    la.fit(loader)
+    with PanelTally() as tally:
+        la.fit(loader)
     fit_s = time.perf_counter() - t0
     launches = {"latrd_panel": latrd_panel.launches, "latrd_panel_v4": latrd_panel_v4.launches}
     retries = matrix.SYMEIG_RETRIES - retries0
@@ -361,8 +409,11 @@ def main_path(seed, device):
                predictive_row_sum_err=row_err,
                peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
     emit(res)
+    res["panels"] = tally.counts
     check(la.n_params == 11_164_362, f"ResNet-18 has {la.n_params} weights, not 11164362")
     check(all(v > 0 for v in launches.values()), f"a kernel did not run on the main path: {launches}")
+    check(all(sum(tally.counts[k].values()) == n for k, n in launches.items()),
+          f"panels tallied {tally.counts} against launches {launches}")
     check(retries == 0, f"{retries} factors needed the symeig retry")
     check(worst <= EIG_TOL, f"main-path eigenvalues off by {worst:.3e} > {EIG_TOL}")
     check(math.isfinite(lml), "log marginal likelihood is not finite")
@@ -371,6 +422,40 @@ def main_path(seed, device):
           "predictive has the wrong shape or is not finite")
     check(row_err <= 1e-5, f"predictive rows sum to 1 only within {row_err:.3e}")
     return res
+
+
+def window_phase(rows, panels, seed, device, smi):
+    """Each panel the main path launched, timed on a random window of its
+    (K, m) at its offset (5 repetitions by CUDA events, float32); the
+    kernel's row gains `ms_by_window` and `main_path_ms`, the sum of
+    launches x ms over the main path's panels."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    out = dict(phase="windows", nvidia_smi=smi, reps=5, dtype="float32")
+    for row in rows:
+        if row["name"] not in panels:
+            continue
+        kernel = getattr(panel_module(row["name"]), row["name"])
+        by_window, total = {}, 0.0
+        for K, m in sorted({(K, m) for K, m, _, _ in panels[row["name"]]},
+                           key=lambda w: -w[0] * w[1] ** 2):
+            A = sym_stack(K, m, gen, device, torch.float32)
+            win = dict(launches=0, ms=0.0)
+            for (k2, m2, off, nb), n in sorted(panels[row["name"]].items()):
+                if (k2, m2) != (K, m):
+                    continue
+                ms = cuda_ms(lambda: kernel(A, off, 0, m, nb), reps=5)
+                win["launches"] += n
+                win["ms"] += n * ms
+                if off == 0:
+                    win["first_panel_ms"] = ms
+            by_window[f"{K}x{m}"] = win
+            total += win["ms"]
+            del A
+        row.update(ms_by_window=by_window, main_path_ms=total)
+        out[row["name"]] = dict(ms_by_window=by_window, main_path_ms=total)
+    emit(out)
 
 
 def ll_ggn_f64(la, loader):
@@ -645,13 +730,16 @@ def main() -> None:
     # all-weights main path, syrk from the last-layer FullLL fit, v3 and v2
     # from the eigensolvers phase
     main = main_path(args.seed, device)
+    window_phase(rows, main["panels"], args.seed, device, smi)
     launches = dict(main["launches"])
     launches.update(last_layer_phase(args.seed, device))
     launches.update(eigensolvers_phase(args.seed, device, main))
 
     keys = ("name", "route", "source", "replaces", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [dict({k: r[k] for k in keys}, launches=launches[r["name"]])
+    print(json.dumps({"kernels": [dict({k: r[k] for k in keys}, launches=launches[r["name"]],
+                                       **({"main_path_ms": r["main_path_ms"]}
+                                          if "main_path_ms" in r else {}))
                                   for r in rows]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -4,7 +4,10 @@
 // One panel of blocked Householder tridiagonalization on a stack of K
 // symmetric windows Aw (K, m, m), row-major, for window-relative columns
 // c = off .. off+nb-1 (the contract of laplace_jax_torch/ops/tridiag.py).
-// Each column runs four launches on the caller's stream:
+// In latrd.cu, latrd_v2.cu and latrd_v3.cu each column runs four launches
+// on the caller's stream (latrd_v4.cu runs the same steps as phases of one
+// persistent launch, from the device functions col_block, house_from and
+// w_block that the kernels below wrap):
 //
 //   1. k_col    grid (m/64, K): corrected column
 //                 col = Aw[c, :] - U^T W[:, c] - W^T U[:, c]
@@ -120,28 +123,29 @@ __device__ __forceinline__ T warp_dot(const T* a, const T* v, int l0, int lend) 
 template <typename T>
 __device__ __forceinline__ int vec_floor(int l) { return (l / Vec<T>::n) * Vec<T>::n; }
 
-// Step 1 for column c: col[i] = row[i] - sum_{q0 <= q < j} (U[q, i] W[q, c]
-// + W[q, i] U[q, c]) for rows i >= c, where `row` (window k at row +
-// k * row_kstride) is window row c (== column c: the window is symmetric),
-// q0 = 0; latrd_v2.cu passes that row already corrected for q < q0.
+// Step 1 for column c, one block of kRows rows (blk) of window k:
+// col[i] = row[i] - sum_{q0 <= q < j} (U[q, i] W[q, c] + W[q, i] U[q, c])
+// for rows i >= c, where row[i] (read at rr[r], r = i - blk * kRows) is
+// window row c (== column c: the window is symmetric), q0 = 0; latrd_v2.cu
+// passes that row already corrected for q < q0. The block's rows of U and
+// W are read at ur[q * rs + r] and ur[(nb + q) * rs + r] (rows of UW, or
+// latrd_v4.cu's copy of them), U[q, c] at cv[q * cs] and W[q, c] at
+// cv[(nb + q) * cs]. Writes the block's partial sum of col^2 below c.
 template <typename T>
-__global__ void __launch_bounds__(kBlock)
-k_col(Panel<T> p, int c, int j, const T* row, size_t row_kstride, int q0) {
-  __shared__ T red[kGroups][kRows];
-  __shared__ T sh[kWarps + 1];
-  const int k = blockIdx.y, r = threadIdx.x % kRows, g = threadIdx.x / kRows;
-  const int i = blockIdx.x * kRows + r;
-  const size_t mm = p.m;
-  if ((blockIdx.x + 1) * kRows <= c) {  // every row above the column
-    if (threadIdx.x == 0) p.part[k * p.nrb + blockIdx.x] = 0;
+__device__ __forceinline__ void col_block(const Panel<T>& p, int c, int j, const T* rr, int q0,
+                                          int k, int blk, const T* ur, size_t rs, const T* cv,
+                                          size_t cs, T (&red)[kGroups][kRows], T* sh) {
+  const int r = threadIdx.x % kRows, g = threadIdx.x / kRows;
+  const int i = blk * kRows + r;
+  if ((blk + 1) * kRows <= c) {  // every row above the column
+    if (threadIdx.x == 0) p.part[k * p.nrb + blk] = 0;
     return;
   }
-  const T* U = p.UW + (size_t)k * 2 * p.nb * mm;
-  const T* W = U + (size_t)p.nb * mm;
   T corr = 0;
   if (i < p.m && i >= c && i < p.nv)
+#pragma unroll 8
     for (int q = q0 + g; q < j; q += kGroups)
-      corr += U[q * mm + i] * W[q * mm + c] + W[q * mm + i] * U[q * mm + c];
+      corr += ur[q * rs + r] * cv[(p.nb + q) * cs] + ur[(p.nb + q) * rs + r] * cv[q * cs];
   red[g][r] = corr;
   __syncthreads();
   T sq = 0;
@@ -149,25 +153,38 @@ k_col(Panel<T> p, int c, int j, const T* row, size_t row_kstride, int q0) {
     T val = 0;
     if (i < p.nv) {
       for (int h = 1; h < kGroups; ++h) corr += red[h][r];
-      val = row[k * row_kstride + i] - corr;
+      val = rr[r] - corr;
     }
-    p.col[k * mm + i] = val;
+    p.col[(size_t)k * p.m + i] = val;
     if (i > c) sq = mul_rn(val, val);
   }
   sq = block_sum(sq, sh);
-  if (threadIdx.x == 0) p.part[k * p.nrb + blockIdx.x] = sq;
+  if (threadIdx.x == 0) p.part[k * p.nrb + blk] = sq;
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kBlock) k_house(Panel<T> p, int c, int j) {
+__global__ void __launch_bounds__(kBlock)
+k_col(Panel<T> p, int c, int j, const T* row, size_t row_kstride, int q0) {
+  __shared__ T red[kGroups][kRows];
   __shared__ T sh[kWarps + 1];
-  const int k = blockIdx.x;
-  const size_t mm = p.m;
-  T acc = 0;
-  for (int b = threadIdx.x; b < p.nrb; b += kBlock) acc += p.part[k * p.nrb + b];
-  const T sumsq = block_sum(acc, sh);  // sum of col^2 over rows > c
-  const T* col = p.col + k * mm;
-  const T alpha = c + 1 < p.m ? col[c + 1] : T(0);
+  const int k = blockIdx.y, b = blockIdx.x;
+  const T* UWk = p.UW + (size_t)k * 2 * p.nb * p.m;
+  col_block(p, c, j, row + k * row_kstride + b * kRows, q0, k, b, UWk + b * kRows, p.m,
+            UWk + c, p.m, red, sh);
+}
+
+// The reflector of column c in window k, from sumsq = the sum of col^2
+// over rows > c, alpha = col[c+1] and d = col[c]: the JAX package's sign
+// and trivial-reflector rules. With `write`, thread 0 writes d, e, tau.
+template <typename T>
+struct Reflector {
+  T tau, denom;
+  bool ok;  // column c is not one of the last two (else an exact no-op)
+};
+
+template <typename T>
+__device__ __forceinline__ Reflector<T> house_from(const Panel<T>& p, int c, int j, int k,
+                                                   T sumsq, T alpha, T d, bool write) {
   const T a2 = mul_rn(alpha, alpha);
   const T xn = sumsq - a2;
   const T xnorm2 = xn < 0 ? T(0) : xn;  // keeps a NaN
@@ -177,19 +194,37 @@ __global__ void __launch_bounds__(kBlock) k_house(Panel<T> p, int c, int j) {
   const T denom = trivial ? T(1) : alpha - beta;
   const bool ok = c + p.q_base < p.n_real - 2;
   const T tau = (trivial || !ok) ? T(0) : (beta - alpha) / beta;
-  if (threadIdx.x == 0) {
+  if (write && threadIdx.x == 0) {
     T* det = p.det + (size_t)k * 3 * p.nb;
-    det[j] = col[c];
+    det[j] = d;
     det[p.nb + j] = trivial ? alpha : beta;
     det[2 * p.nb + j] = tau;
     p.scal[k * 4] = tau;
   }
+  return {tau, denom, ok};
+}
+
+// Entry i of the reflector v of column c, from the corrected column's x = col[i]
+template <typename T>
+__device__ __forceinline__ T reflector_entry(T x, int i, int c, bool ok, T denom) {
+  return (ok && i > c) ? (i == c + 1 ? T(1) : x / denom) : T(0);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kBlock) k_house(Panel<T> p, int c, int j) {
+  __shared__ T sh[kWarps + 1];
+  const int k = blockIdx.x;
+  const size_t mm = p.m;
+  const T* col = p.col + k * mm;
+  T acc = 0;
+  for (int b = threadIdx.x; b < p.nrb; b += kBlock) acc += p.part[k * p.nrb + b];
+  const T sumsq = block_sum(acc, sh);  // sum of col^2 over rows > c
+  const Reflector<T> rf = house_from(p, c, j, k, sumsq, c + 1 < p.m ? col[c + 1] : T(0),
+                                     col[c], true);
   T* v = p.UW + ((size_t)k * 2 * p.nb + j) * mm;
   T* y = p.y + k * mm;
   for (int i = threadIdx.x; i < p.m; i += kBlock) {
-    T vi = 0;
-    if (ok && i > c) vi = i == c + 1 ? T(1) : col[i] / denom;
-    v[i] = vi;
+    v[i] = reflector_entry(col[i], i, c, rf.ok, rf.denom);
     y[i] = 0;
   }
 }
@@ -208,38 +243,55 @@ __device__ __forceinline__ void dots_block(const Panel<T>& p, int c, int j, int 
   if ((threadIdx.x & 31) == 0) p.st[k * 2 * p.nb + r] = s;
 }
 
+// Step 4 for column c, one block of kRows rows (blk) of window k, given
+// yv = y.v, tau, and st = (s, t) = (U v, W v) (window k's row of p.st, or a
+// copy of it): w = tau (y - U^T t - W^T s) - tau/2 (w.v) v, written as row
+// nb+j of UW (and at wr[r], when given). y on the block's rows is read at
+// yr[r]; the rows of U and W, and v, at ur[q * rs + r], ur[(nb + q) * rs +
+// r], ur[j * rs + r] as in col_block.
 template <typename T>
-__global__ void __launch_bounds__(kBlock) k_w(Panel<T> p, int c, int j) {
-  __shared__ T red[kGroups][kRows];
-  __shared__ T sh[kWarps + 1];
-  const int k = blockIdx.y, r = threadIdx.x % kRows, g = threadIdx.x / kRows;
-  const int i = blockIdx.x * kRows + r;
-  const size_t mm = p.m;
-  const T* U = p.UW + (size_t)k * 2 * p.nb * mm;
-  const T* W = U + (size_t)p.nb * mm;
-  const T* v = U + (size_t)j * mm;
-  const T* y = p.y + k * mm;
-  const T* s = p.st + k * 2 * p.nb;  // U v
-  const T* t = s + p.nb;             // W v
-  const T tau = p.scal[k * 4];
-  T acc = 0;
-  for (int l = c + 1 + threadIdx.x; l < p.nv; l += kBlock) acc += y[l] * v[l];
-  const T yv = block_sum(acc, sh);
+__device__ __forceinline__ void w_block(const Panel<T>& p, int c, int j, int k, int blk, T yv,
+                                        T tau, const T* st, const T* yr, const T* ur, size_t rs,
+                                        T* wr, T (&red)[kGroups][kRows]) {
+  const int r = threadIdx.x % kRows, g = threadIdx.x / kRows;
+  const int i = blk * kRows + r;
+  const T* s = st;         // U v
+  const T* t = st + p.nb;  // W v
   T corr = 0;
   if (i < p.m && i > c && i < p.nv)
-    for (int q = g; q < j; q += kGroups) corr += U[q * mm + i] * t[q] + W[q * mm + i] * s[q];
+#pragma unroll 8
+    for (int q = g; q < j; q += kGroups)
+      corr += ur[q * rs + r] * t[q] + ur[(p.nb + q) * rs + r] * s[q];
   red[g][r] = corr;
   __syncthreads();
   if (g != 0 || i >= p.m) return;
   T wi = 0;
   if (i > c && i < p.nv) {
     for (int h = 1; h < kGroups; ++h) corr += red[h][r];
-    T st = 0;
-    for (int q = 0; q < j; ++q) st += s[q] * t[q];
-    const T wv = tau * (yv - 2 * st);
-    wi = tau * (y[i] - corr) - T(0.5) * tau * wv * v[i];
+    T sdt = 0;
+    for (int q = 0; q < j; ++q) sdt += s[q] * t[q];
+    const T wv = tau * (yv - 2 * sdt);
+    wi = tau * (yr[r] - corr) - T(0.5) * tau * wv * ur[j * rs + r];
   }
-  p.UW[((size_t)k * 2 * p.nb + p.nb + j) * mm + i] = wi;
+  p.UW[((size_t)k * 2 * p.nb + p.nb + j) * p.m + i] = wi;
+  if (wr) wr[r] = wi;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kBlock) k_w(Panel<T> p, int c, int j) {
+  __shared__ T red[kGroups][kRows];
+  __shared__ T sh[kWarps + 1];
+  const int k = blockIdx.y, b = blockIdx.x;
+  const size_t mm = p.m;
+  const T* UWk = p.UW + (size_t)k * 2 * p.nb * mm;
+  const T* v = UWk + (size_t)j * mm;
+  const T* y = p.y + k * mm;
+  const T tau = p.scal[k * 4];
+  T acc = 0;
+  for (int l = c + 1 + threadIdx.x; l < p.nv; l += kBlock) acc += y[l] * v[l];
+  const T yv = block_sum(acc, sh);
+  w_block(p, c, j, k, b, yv, tau, p.st + k * 2 * p.nb, y + b * kRows, UWk + b * kRows, mm,
+          static_cast<T*>(nullptr), red);
 }
 
 // Full-row trailing matvec (latrd.cu, latrd_v2.cu): one warp per trailing
@@ -300,7 +352,7 @@ Panel<T> make_panel(const void* Aw, void* UW, void* det, void* col, void* part, 
 template <typename T>
 using MatvecLauncher = cudaError_t (*)(const Panel<T>&, int c, int j, cudaStream_t);
 
-// The whole panel as latrd.cu, latrd_v3.cu and latrd_v4.cu run it: nb
+// The whole panel as latrd.cu and latrd_v3.cu run it: nb
 // columns of k_col, k_house, the kernel's matvec and k_w.
 template <typename T>
 cudaError_t run_columns(const Panel<T>& p, int off, cudaStream_t s, MatvecLauncher<T> matvec) {

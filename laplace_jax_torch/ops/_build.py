@@ -32,12 +32,18 @@ _PANEL = (_I, [_P] * 9 + [_I] * 6 + [_P])
 # work_elems(K, m, nb) and part_elems(K, m)
 _PANEL_LIB = {"panel_f32": _PANEL, "panel_f64": _PANEL,
               "work_elems": (_Z, [_I] * 3), "part_elems": (_Z, [_I] * 2)}
+# latrd_v4's panel takes its tile schedule (device pointer), the number of
+# blocks, the resident tiles and the cached row blocks per block before the
+# stream
+_PANEL_V4 = (_I, [_P] * 9 + [_I] * 6 + [_P, _I, _I, _I, _P])
+_PANEL_V4_LIB = {"panel_f32": _PANEL_V4, "panel_f64": _PANEL_V4, "ring_slots": (_I, [_I]),
+                 "work_elems": (_Z, [_I] * 3), "part_elems": (_Z, [_I] * 2)}
 _SYRK = (_I, [_P, _P, _I, _I, _P])  # A, H, R, P, stream
 # each source's C entry points, as (result type, argument types); every
 # library also exports `error_string(int)`
 SIGNATURES = {
     "latrd": _PANEL_LIB,
-    "latrd_v4": _PANEL_LIB,
+    "latrd_v4": _PANEL_V4_LIB,
     "latrd_v3": _PANEL_LIB,
     "latrd_v2": _PANEL_LIB,
     "syrk": {"syrk_f32": _SYRK, "syrk_f64": _SYRK},

@@ -41,24 +41,33 @@ def panel_buffers(lib, K: int, m: int, nb: int, dtype, device) -> dict:
                 work=torch.empty(max(lib.work_elems(K, m, nb), 1), **kw))
 
 
-def launch_panel(lib_name: str, Aw, off: int, q_base: int, n_real: int, nb: int):
-    """Check the window and run one panel of the library's kernel on
-    PyTorch's current stream; returns (UW, det) as in the contract."""
+def check_window(Aw, off: int, nb: int) -> None:
+    """Raise for a window the panel kernels do not take."""
     if Aw.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"panel kernel takes float32/float64, got {Aw.dtype}")
     if Aw.ndim != 3 or Aw.shape[1] != Aw.shape[2] or not Aw.is_contiguous():
         raise ValueError(f"panel kernel takes a contiguous (K, m, m) window, got "
                          f"{tuple(Aw.shape)} contiguous={Aw.is_contiguous()}")
-    K, m, _ = Aw.shape
+    m = Aw.shape[1]
     if m % 64 or not 0 <= off <= m - nb or nb < 1:
         raise ValueError(f"panel kernel needs m % 64 == 0 and off + nb <= m "
                          f"(m={m}, off={off}, nb={nb})")
+
+
+def launch_panel(lib_name: str, Aw, off: int, q_base: int, n_real: int, nb: int,
+                 extra: tuple = ()):
+    """Check the window and run one panel of the library's kernel on
+    PyTorch's current stream; returns (UW, det) as in the contract.
+    `extra` are the arguments a library takes after `n_real`
+    (`ops/latrd_v4.py`'s schedule)."""
+    check_window(Aw, off, nb)
+    K, m, _ = Aw.shape
     lib = _build.load(lib_name)
     fn = lib.panel_f32 if Aw.dtype == torch.float32 else lib.panel_f64
     buf = panel_buffers(lib, K, m, nb, Aw.dtype, Aw.device)
     stream = torch.cuda.current_stream(Aw.device).cuda_stream
     rc = fn(Aw.data_ptr(), *(b.data_ptr() for b in buf.values()),
-            K, m, nb, off, q_base, n_real, stream)
+            K, m, nb, off, q_base, n_real, *extra, stream)
     if rc != 0:
         raise RuntimeError(f"{lib_name} panel launch failed: "
                            f"{lib.error_string(rc).decode()}")

@@ -13,6 +13,11 @@ entry: float64 1e-10 (only the summation order differs); float32 2e-4 for
 the panels (order, and the v4 kernel's atomics, whose order changes from
 run to run; v3 sums in one fixed order and repeats bitwise) and 1e-4 for
 syrk (order over up to 1280 rows).
+
+The v4 panel is one cooperative launch per panel with a tile schedule from
+`ops/latrd_v4.panel_plan`; it is held against its plain version at every
+window the ResNet-18 main path gives it (first and last panel, both
+dtypes) and on windows with fewer live tiles than the card has SMs.
 """
 
 import numpy as np
@@ -81,6 +86,66 @@ def test_panel_matches_plain(cuda, kernel, plain, dtype, tol, off, q_base):
         torch.testing.assert_close(g.cpu(), r, atol=tol * float(r.abs().max()), rtol=0)
 
 
+# (K, m, S): the windows stage 1 visits for ResNet-18's v4 classes, 4608 x3
+# and 2304 x4 (`tests/test_torch_latrd_v4_schedule.py` derives them)
+V4_WINDOWS = [(3, 4608, 1152), (3, 3456, 1152), (3, 2304, 1152), (3, 1152, 1152),
+              (4, 2304, 768), (4, 1536, 768), (4, 768, 768)]
+
+
+def _card_window(seed, K, m, dtype, device):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    A = torch.randn(K, m, m, generator=gen, device=device, dtype=dtype)
+    return (A + A.mT) / 2
+
+
+def _assert_panel_close(got, ref, tol):
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, atol=tol * float(r.abs().max()), rtol=0)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10), (torch.float32, 2e-4)],
+                         ids=["float64", "float32"])
+@pytest.mark.parametrize("K,m,off", [pytest.param(K, m, off, id=f"{K}x{m}-off{off}")
+                                     for K, m, S in V4_WINDOWS for off in (0, S - 64)])
+def test_v4_panel_at_main_path_windows(cuda, K, m, off, dtype, tol):
+    """The persistent v4 panel against its plain version (both on the card)
+    at the first and the last panel of every main-path window."""
+    A = _card_window(m + off, K, m, dtype, cuda)
+    launches = latrd_panel_v4.launches
+    got = latrd_panel_v4(A, off, 0, m, 64)
+    torch.cuda.synchronize()
+    assert latrd_panel_v4.launches == launches + 1
+    _assert_panel_close(got, latrd_panel_v4_plain(A, off, 0, m, 64), tol)
+
+
+def test_v4_panel_without_row_cache(cuda):
+    """40 float64 windows of 768: a block's rows of U and W (four row blocks)
+    do not fit in shared memory beside the ring, so the kernel reads them
+    from UW itself."""
+    from laplace_jax_torch.ops.latrd_v4 import panel_plan
+
+    n_cta = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert panel_plan(40, 768, 0, 64, 8, n_cta)[1] == 0
+    A = _card_window(11, 40, 768, torch.float64, cuda)
+    for off in (0, 704):
+        got = latrd_panel_v4(A, off, 0, 768, 64)
+        torch.cuda.synchronize()
+        _assert_panel_close(got, latrd_panel_v4_plain(A, off, 0, 768, 64), 1e-10)
+
+
+@pytest.mark.parametrize("K,m,off,n_valid", [(1, 256, 192, 256), (4, 768, 704, 768),
+                                             (2, 640, 576, 600), (1, 128, 0, 100)])
+def test_v4_panel_with_fewer_tiles_than_blocks(cuda, K, m, off, n_valid):
+    """Trailing blocks of 1 to 30 live tiles for the card's 100+ blocks:
+    blocks without tiles still meet every grid barrier; padded rows too."""
+    for dtype, tol in ((torch.float64, 1e-10), (torch.float32, 2e-4)):
+        A = _window(9, K, m, n_valid, dtype)
+        got = latrd_panel_v4(A.to(cuda), off, 0, n_valid, 64)
+        torch.cuda.synchronize()
+        ref = latrd_panel_v4_plain(A, off, 0, n_valid, 64)
+        _assert_panel_close([g.cpu() for g in got], ref, tol)
+
+
 @pytest.mark.parametrize("driver", [tridiagonalize_latrd, tridiagonalize_latrd_v4,
                                     tridiagonalize_latrd_v3, tridiagonalize_latrd_v2])
 def test_stage1_invariants(cuda, driver):
@@ -127,10 +192,12 @@ def test_v3_repeats_bitwise(cuda):
 @pytest.mark.parametrize("lib_name", ["latrd", "latrd_v4", "latrd_v3", "latrd_v2"])
 def test_panel_writes_stay_inside_the_scratch_it_declares(cuda, lib_name):
     """Each panel library sizes its own `part` and `work` scratch
-    (`part_elems`, `work_elems`): a guard placed past each keeps its
-    bits through a whole panel."""
+    (`part_elems`, `work_elems`; v4's work holds its grid barrier's counter
+    and each block's share of y.v): a guard placed past each keeps its
+    bits through a whole panel, and v4's schedule table is left as it was."""
     from laplace_jax_torch.ops import _build
     from laplace_jax_torch.ops.latrd import panel_buffers
+    from laplace_jax_torch.ops.latrd_v4 import _plans, _schedule_args
 
     K, m, nb, guard, mark = 3, 384, 64, 4096, 1234.5
     A = _window(7, K, m, m - 5, torch.float32).to(cuda)
@@ -139,12 +206,16 @@ def test_panel_writes_stay_inside_the_scratch_it_declares(cuda, lib_name):
     sizes = {key: buf[key].numel() for key in ("part", "work")}
     for key, n in sizes.items():
         buf[key] = torch.full((n + guard,), mark, device=cuda)
+    extra = _schedule_args(A, 0, nb) if lib_name == "latrd_v4" else ()
+    table = _plans[(K, m, 0, nb, A.dtype, A.device)][0].clone() if extra else None
     stream = torch.cuda.current_stream(cuda).cuda_stream
     assert lib.panel_f32(A.data_ptr(), *(b.data_ptr() for b in buf.values()),
-                         K, m, nb, 0, 0, m - 5, stream) == 0
+                         K, m, nb, 0, 0, m - 5, *extra, stream) == 0
     torch.cuda.synchronize()
     for key, n in sizes.items():
         assert bool((buf[key][n:] == mark).all()), f"{lib_name} wrote past {key}"
+    if extra:
+        assert torch.equal(_plans[(K, m, 0, nb, A.dtype, A.device)][0], table)
 
 
 def test_eigh_stack_dc_on_card_matches_eigvalsh(cuda):
