@@ -7,12 +7,16 @@ Phases, each printing one JSON line; any failed check exits non-zero:
 
 1. device  - the card's name and power limit (`nvidia-smi`);
 2. build   - compiles every CUDA kernel from `laplace_jax_torch/csrc/`,
-             one `nvcc` per source, all at once;
+             one `nvcc` per source, all at once; prints each kernel's
+             registers and spills, and v1's shared memory at (4, 1152);
 3. kernels - each LATRD panel kernel at a real ResNet-18 factor class
              (v1 and v2 at (4, 1152), v4 and v3 at (3, 4608), float32)
-             against its plain PyTorch version on the same inputs, v3 also
-             against itself (bitwise), and the whole `eigh_stack_ts`
-             through that kernel against `torch.linalg.eigh`;
+             against its plain PyTorch version on the same inputs, v3 and
+             v1 also against themselves (bitwise), and the whole
+             `eigh_stack_ts` through that kernel against `torch.linalg.eigh`;
+             v1 also on a (17, 128) window at offset 64 (7 blocks a window
+             of 9 or 10 rows, next to no work a column), the cost of its
+             2 nb grid barriers and phase latencies;
              the syrk kernel at the last-layer GGN shape (1280, 5130)
              float32 and a ragged (37, 130) float64 against `syrk_plain`;
 4. reference - width-8 ResNet-18 fits in float64 on the card against the
@@ -23,8 +27,9 @@ Phases, each printing one JSON line; any failed check exits non-zero:
              (width 64, 10 classes, 11.16M weights) over 512 CIFAR-10-shaped
              inputs in batches of 128, marglik prior tuning, and the GLM
              probit predictive on 8 inputs, with both LATRD kernels' launch
-             counts read from this run and every panel it launched tallied
-             by (K, m, off);
+             counts read from this run (35 v1, 108 v4) and every panel it
+             launched tallied by (K, m, off); the TF32 switches must read
+             as they did before the fit (the port scopes its own);
    windows - each panel the main path launched, on a random window of its
              (K, m) at its offset, timed 5 times with CUDA events: the v4
              and v1 rows gain `ms_by_window` and `main_path_ms` (the sum
@@ -90,7 +95,8 @@ KERNELS = [  # (name, module, stage-1 driver and name, source, TPU kernel replac
     ("latrd_panel_v2", "latrd_v2", "tridiagonalize_latrd_v2", "latrd_v2",
      "laplace_jax_torch/csrc/latrd_v2.cu", "laplace_jax/ops/latrd_pallas_v2.py:262", 4, 1152),
 ]
-BITWISE = {"latrd_panel_v3"}  # kernels whose two launches must agree bit for bit
+BITWISE = {"latrd_panel_v3", "latrd_panel"}  # kernels whose two launches agree bit for bit
+MAIN_LAUNCHES = {"latrd_panel": 35, "latrd_panel_v4": 108}  # panels of one all-weights fit
 
 
 def emit(obj) -> None:
@@ -194,13 +200,21 @@ def kernel_phase(name, module, driver, stage1, source, replaces, K, n, seed, dev
     check(recon <= RECON_TOL, f"{name}: reconstruction {recon:.3e} > {RECON_TOL}")
     check(orth <= RECON_TOL, f"{name}: orthogonality {orth:.3e} > {RECON_TOL}")
 
+    if name == "latrd_panel":  # the column chain's floor: barriers and phase latency
+        small = sym_stack(17, 128, gen, device, torch.float32)
+        floor_ms = cuda_ms(lambda: kernel(small, 64, 0, 128, nb), reps=20)
+        extra = dict(chain_floor=dict(shape=[17, 128, 128], off=64, nb=nb, ms=floor_ms,
+                                      grid_barriers=2 * nb,
+                                      us_per_column=1e3 * floor_ms / nb))
+    else:
+        extra = {}
     row = dict(name=name, route="cuda", source=source, replaces=replaces,
                shape=[K, n, n], nb=nb, dtype="float32", max_abs_err=max_abs_err,
                rel_err=errs, panel_tol=PANEL_TOL, repeat_bitwise=bitwise, ms=ms, plain_ms=plain_ms,
                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
                library_call="torch.linalg.eigh on the whole stack (yardstick only)",
                stage1=stage1, stage1_ms=stage1_ms, ts_ms=ts_ms, stage1_spectrum_err=stage1_err, eig_rel_err=eig_err,
-               recon_rel_err=recon, orth_err=orth)
+               recon_rel_err=recon, orth_err=orth, **extra)
     emit(dict(phase="kernel", **row))
     return row
 
@@ -356,6 +370,13 @@ class PanelTally:
             panel_module(name).tridiagonalize_windows = inner
 
 
+def tf32_flags():
+    """(torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)"""
+    import torch
+
+    return [torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32]
+
+
 def main_path(seed, device):
     import torch
 
@@ -369,10 +390,12 @@ def main_path(seed, device):
     torch.cuda.reset_peak_memory_stats()
     latrd_panel.launches = latrd_panel_v4.launches = 0
     retries0 = matrix.SYMEIG_RETRIES
+    flags0 = tf32_flags()
     t0 = time.perf_counter()
     with PanelTally() as tally:
         la.fit(loader)
     fit_s = time.perf_counter() - t0
+    flags_after_fit = tf32_flags()
     launches = {"latrd_panel": latrd_panel.launches, "latrd_panel_v4": latrd_panel_v4.launches}
     retries = matrix.SYMEIG_RETRIES - retries0
     lml = float(la.log_marginal_likelihood())
@@ -399,6 +422,7 @@ def main_path(seed, device):
     torch.cuda.synchronize()
     pred_s = time.perf_counter() - t0
     row_err = float((probs.sum(-1) - 1).abs().max())
+    flags_after = tf32_flags()
 
     res = dict(phase="main", model="ResNet18(width=64, num_classes=10)", n_params=la.n_params,
                n_data=512, batch=128, dtype="float32", fit_s=fit_s,
@@ -406,12 +430,15 @@ def main_path(seed, device):
                launches=launches, symeig_retries=retries, factor_sizes=sizes,
                eig_rel_err_vs_eigh=worst, log_marglik=lml, marglik_100_steps_s=marglik_s,
                prior_precision=pp, predictive_s=pred_s, predictive_shape=list(probs.shape),
-               predictive_row_sum_err=row_err,
+               predictive_row_sum_err=row_err, tf32_flags_before=flags0,
+               tf32_flags_after_fit=flags_after_fit, tf32_flags_after_tuning_and_predictive=flags_after,
                peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
     emit(res)
     res["panels"] = tally.counts
     check(la.n_params == 11_164_362, f"ResNet-18 has {la.n_params} weights, not 11164362")
-    check(all(v > 0 for v in launches.values()), f"a kernel did not run on the main path: {launches}")
+    check(launches == MAIN_LAUNCHES, f"main-path launches {launches}, not {MAIN_LAUNCHES}")
+    check(flags_after_fit == flags0 and flags_after == flags0,
+          f"TF32 switches {flags0} read {flags_after_fit} after the fit, {flags_after} at the end")
     check(all(sum(tally.counts[k].values()) == n for k, n in launches.items()),
           f"panels tallied {tally.counts} against launches {launches}")
     check(retries == 0, f"{retries} factors needed the symeig retry")
@@ -466,12 +493,14 @@ def ll_ggn_f64(la, loader):
     import torch
 
     from laplace_jax_torch.ops.syrk import syrk_plain
+    from laplace_jax_torch.utils.device import full_f32
 
     head = la.model.module.get_submodule(".".join(la.last_layer_path))
     W, bias = head.weight.detach().double(), head.bias.detach().double()
     H = None
     for X, _ in loader:
-        with torch.no_grad():
+        # the features as the fit computes them: float32 convolutions without TF32
+        with torch.no_grad(), full_f32():
             phi = la.model.apply_with_features(la._tensor(X), la.last_layer_path)[1].double()
         p = torch.softmax(phi @ W.T + bias, dim=-1)
         B, C = p.shape
@@ -715,13 +744,16 @@ def main() -> None:
               cuda=torch.version.cuda))
 
     from laplace_jax_torch.ops import _build
-    from laplace_jax_torch.utils.device import full_f32_matmuls
+    from laplace_jax_torch.ops.latrd import panel_plan
 
-    full_f32_matmuls()
     build_s = _build.build_all()
     ptxas = {n: [ln.strip() for ln in _build.build_log(n).splitlines()
                  if "registers" in ln or "spill" in ln] for n in _build.SOURCES}
     emit(dict(phase="build", seconds=build_s, ptxas=ptxas))
+    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+    emit(dict(phase="build", kernel="latrd_panel", ptxas=ptxas["latrd"],
+              plan_at_4x1152={dt: panel_plan(4, 1152, 0, 64, size, n_sm)._asdict()
+                              for dt, size in (("float32", 4), ("float64", 8))}))
 
     rows = [kernel_phase(*row, args.seed, device) for row in KERNELS]
     rows.append(syrk_phase(args.seed, device))

@@ -14,6 +14,8 @@ Kron, Full and Diag posteriors (port of `laplace_jax/baselaplace.py`).
 
 The likelihood is classification (regression is not ported yet).
 Everything runs on `device`: CUDA unless the caller passes `device="cpu"`.
+Fits, marglik and the predictives run in full float32 (`utils/device.full_f32`);
+the caller's TF32 settings are left as they were.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ from laplace_jax_torch.curvature.backend import CurvatureBackend
 from laplace_jax_torch.enums import Likelihood, PredType, PriorStructure, TuningMethod
 from laplace_jax_torch.nnmodel import NNModel
 from laplace_jax_torch.utils.data import dataset_size
-from laplace_jax_torch.utils.device import full_f32_matmuls, resolve_device
+from laplace_jax_torch.utils.device import full_f32, resolve_device
 from laplace_jax_torch.utils.linalg import invsqrt_precision, normal_samples
 from laplace_jax_torch.utils.matrix import Kron, KronDecomposed, broadcast_groups
 from laplace_jax_torch.utils.prior import fix_prior_prec_structure
@@ -45,7 +47,6 @@ class BaseLaplace:
             raise ValueError(f"Likelihood {likelihood!r} is not ported; only "
                              "'classification' is.")
         self.device = resolve_device(device)
-        full_f32_matmuls()
         self.model = NNModel(model.to(self.device))
         self.likelihood = likelihood
         self.n_params = self.model.n_params
@@ -123,6 +124,7 @@ class BaseLaplace:
         return -1.0 / (sigma_noise ** 2) / self.temperature * self.loss
 
     # ---- prior tuning
+    @full_f32()
     def optimize_prior_precision(self, method=TuningMethod.MARGLIK, n_steps: int = 100,
                                  lr: float = 1e-1, init_prior_prec=1.0,
                                  prior_structure=PriorStructure.SCALAR) -> None:
@@ -158,6 +160,7 @@ class ParametricLaplace(BaseLaplace):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    @full_f32()
     def fit(self, train_loader, override: bool = True) -> None:
         """Accumulate batch curvature over the loader (reference
         `baselaplace.py:709`, `_scan_accumulate` at `:814`); `fit_seconds["accumulate"]` records the
@@ -208,6 +211,7 @@ class ParametricLaplace(BaseLaplace):
             self._log_det_ratio(prior_precision, sigma_noise)
             + self._scatter(prior_precision))
 
+    @full_f32()
     def log_marginal_likelihood(self, prior_precision=None, sigma_noise=None):
         """Laplace approximation to the log marginal likelihood, differentiable
         in its arguments (reference `baselaplace.py:892`)."""
@@ -221,6 +225,7 @@ class ParametricLaplace(BaseLaplace):
         return self._log_marglik(pp, self.sigma_noise)
 
     # ---- predictive
+    @full_f32()
     def __call__(self, x):
         """GLM predictive with the probit link (reference
         `baselaplace.py:913`, `:989`, link at `:307`): class probabilities (batch, classes)."""
@@ -228,6 +233,7 @@ class ParametricLaplace(BaseLaplace):
         kappa = 1.0 / torch.sqrt(1.0 + math.pi / 8 * torch.diagonal(f_var, dim1=1, dim2=2))
         return torch.softmax(kappa * f_mu, dim=-1)
 
+    @full_f32()
     def predictive_samples(self, x, pred_type=PredType.GLM, n_samples: int = 100,
                            diagonal_output: bool = False,
                            generator: torch.Generator | None = None) -> torch.Tensor:
@@ -294,6 +300,7 @@ class KronLaplace(ParametricLaplace):
         """Rescale the 1/N-carrying activation factor A = F[0]."""
         return Kron([(F[0] * factor, F[1]) if len(F) == 2 else F for F in kron.kfacs])
 
+    @full_f32()
     def fit(self, train_loader, override: bool = True) -> None:
         """Fit, then eigendecompose the factors; `fit_seconds["decompose"]`
         records the decomposition's wall time."""

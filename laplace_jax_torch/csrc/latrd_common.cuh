@@ -4,10 +4,13 @@
 // One panel of blocked Householder tridiagonalization on a stack of K
 // symmetric windows Aw (K, m, m), row-major, for window-relative columns
 // c = off .. off+nb-1 (the contract of laplace_jax_torch/ops/tridiag.py).
-// In latrd.cu, latrd_v2.cu and latrd_v3.cu each column runs four launches
-// on the caller's stream (latrd_v4.cu runs the same steps as phases of one
-// persistent launch, from the device functions col_block, house_from and
-// w_block that the kernels below wrap):
+// In latrd_v2.cu and latrd_v3.cu each column runs four launches on the
+// caller's stream (`run_columns`); latrd_v4.cu runs the same steps as
+// phases of one persistent launch, from the device functions col_block,
+// house_from and w_block that the kernels below wrap, and latrd.cu as
+// phases of a persistent launch of its own. The persistent kernels share
+// the grid barrier, the cp.async helpers and `sm_count` at the end of this
+// file.
 //
 //   1. k_col    grid (m/64, K): corrected column
 //                 col = Aw[c, :] - U^T W[:, c] - W^T U[:, c]
@@ -17,7 +20,7 @@
 //               d, e, tau and v (row j of U), zero y;
 //   3. matvec   y = Aw v over the trailing rows/columns > c, plus blocks
 //               computing s = U v and t = W v for the j earlier rows
-//               (kernel-specific: latrd.cu and latrd_v2.cu read full rows,
+//               (kernel-specific: latrd_v2.cu reads full rows,
 //               latrd_v3.cu and latrd_v4.cu the lower triangle);
 //   4. k_w      grid (m/64, K): w = tau (y - U^T t - W^T s) - tau/2 (w.v) v
 //               with w.v = tau (y.v - 2 s.t), written as row nb+j.
@@ -42,9 +45,6 @@ constexpr int kGroups = kBlock / kRows;   // threads sharing one row's q-loop
 
 // row blocks of k_col / k_w, one partial sum of squares each per window
 __host__ __device__ inline int row_blocks(int m) { return (m + kRows - 1) / kRows; }
-
-// the `work` scratch of a kernel that needs none
-inline size_t no_work(int, int, int) { return 0; }
 
 template <typename T> struct Vec;         // 16-byte vector of T
 template <> struct Vec<float> { using type = float4; static constexpr int n = 4; };
@@ -179,6 +179,7 @@ k_col(Panel<T> p, int c, int j, const T* row, size_t row_kstride, int q0) {
 template <typename T>
 struct Reflector {
   T tau, denom;
+  T e;      // the subdiagonal entry: beta, or alpha for a trivial reflector
   bool ok;  // column c is not one of the last two (else an exact no-op)
 };
 
@@ -201,7 +202,7 @@ __device__ __forceinline__ Reflector<T> house_from(const Panel<T>& p, int c, int
     det[2 * p.nb + j] = tau;
     p.scal[k * 4] = tau;
   }
-  return {tau, denom, ok};
+  return {tau, denom, trivial ? alpha : beta, ok};
 }
 
 // Entry i of the reflector v of column c, from the corrected column's x = col[i]
@@ -294,7 +295,7 @@ __global__ void __launch_bounds__(kBlock) k_w(Panel<T> p, int c, int j) {
           static_cast<T*>(nullptr), red);
 }
 
-// Full-row trailing matvec (latrd.cu, latrd_v2.cu): one warp per trailing
+// Full-row trailing matvec (latrd_v2.cu): one warp per trailing
 // row i > c reads the row's columns > c with 16-byte loads (v is zero at
 // and above c, so the read starts at the vector holding c+1) and writes
 // y[i]; blocks past the rows compute the 2j dot products U v and W v.
@@ -352,8 +353,8 @@ Panel<T> make_panel(const void* Aw, void* UW, void* det, void* col, void* part, 
 template <typename T>
 using MatvecLauncher = cudaError_t (*)(const Panel<T>&, int c, int j, cudaStream_t);
 
-// The whole panel as latrd.cu and latrd_v3.cu run it: nb
-// columns of k_col, k_house, the kernel's matvec and k_w.
+// The whole panel as latrd_v3.cu runs it: nb columns of k_col, k_house,
+// the kernel's matvec and k_w.
 template <typename T>
 cudaError_t run_columns(const Panel<T>& p, int off, cudaStream_t s, MatvecLauncher<T> matvec) {
   const dim3 rows(p.nrb, p.K);
@@ -370,6 +371,51 @@ cudaError_t run_columns(const Panel<T>& p, int off, cudaStream_t s, MatvecLaunch
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
   return cudaSuccess;
+}
+
+// -- the persistent (cooperative) panel kernels: latrd.cu, latrd_v4.cu ------
+
+constexpr int kBarrierElems = 4;  // work[0, 4): the grid barrier's counter
+
+// the SMs of the current device: one block each in a persistent launch
+inline int sm_count() {
+  int dev = 0, n = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  return n;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// All blocks of the (cooperative, so co-resident) grid meet here; writes
+// before it are visible to every block after it. A barrier still open after
+// about ten seconds means a block never arrived: the kernel traps (the
+// launch fails) rather than spinning on.
+__device__ __forceinline__ void grid_sync(unsigned* bar, unsigned& target) {
+  target += gridDim.x;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(bar, 1u);
+    const long long start = clock64();
+    unsigned seen;
+    do {
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(seen) : "l"(bar) : "memory");
+      if (clock64() - start > 20000000000LL) __trap();
+    } while (seen < target);
+    __threadfence();
+  }
+  __syncthreads();
 }
 
 }  // namespace latrd

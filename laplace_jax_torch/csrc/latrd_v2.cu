@@ -17,7 +17,7 @@
 //     row i a (2 j8) x 8 product, sum_q U[q,i] W[q,c] + W[q,i] U[q,c] for
 //     the 8 columns at once. The result, (K, 8, m), is the `work` scratch.
 //     Each column's k_col then starts from its corrected row and adds only
-//     the in-group terms q = j8 .. j-1 (at most 7). latrd.cu's k_col reads
+//     the in-group terms q = j8 .. j-1 (at most 7). The plain k_col reads
 //     2j rows of U/W for every column; this one reads 2 j8 rows once per
 //     group, 8 times less U/W traffic in step 1.
 //   - Not taken, change 2 (v and w of the current 8 columns kept in a small
@@ -26,14 +26,14 @@
 //     every column. On the card k_house and k_w store v and w straight into
 //     their own UW rows, one coalesced row each: there is nothing to defer.
 //   - The w update and the dots U v, W v depend on the current column's v,
-//     so they cannot be grouped and stay per column as in latrd.cu.
+//     so they cannot be grouped and stay per column.
 //
 // The TPU v2 could not compile at n >= 2304 (scoped VMEM); the card has no
 // such limit, and this kernel takes every class.
 //
-// Bound. As latrd.cu: the matvec streams the trailing (m-c) x m rows of
-// every window per column, memory-bound at 2 flops per 4 bytes. Left for
-// later work as there.
+// Bound. The matvec streams the trailing (m-c) x m rows of every window
+// per column, memory-bound at 2 flops per 4 bytes; the four launches a
+// column add their latency. Left for later work.
 
 #include "latrd_common.cuh"
 

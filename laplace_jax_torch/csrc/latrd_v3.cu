@@ -7,8 +7,8 @@
 // tiles. Stage 1 takes it when asked for (`eigh_stack_ts(stage1=
 // "latrd_v3")`); the automatic choice never does, as in the JAX package.
 //
-// Design. The per-column sequence is shared with latrd.cu
-// (latrd_common.cuh). What sets the TPU v3 apart from v4 is the order of its
+// Design. The per-column sequence is the four launches of
+// latrd_common.cuh (`run_columns`). What sets the TPU v3 apart from v4 is the order of its
 // sum: it visits the lower-triangle tile pairs as one flattened loop and
 // adds each product into y in that fixed order. latrd_v4.cu adds every
 // tile's two products into y with atomicAdd, whose order changes from run to

@@ -61,22 +61,20 @@ namespace {
 using latrd::kBlock;
 using latrd::kRows;
 using latrd::kWarps;
+using latrd::cp_async16;
+using latrd::cp_async_commit;
+using latrd::cp_async_wait;
+using latrd::grid_sync;
+using latrd::kBarrierElems;
+using latrd::sm_count;
 constexpr int kTile = 64;
-constexpr int kBarrierElems = 4;  // work[0, 4): the barrier counter
-constexpr int kMaxRes = 16;       // resident tiles per block, at most
+constexpr int kMaxRes = 16;  // resident tiles per block, at most
 
 // A slot: a 64x64 tile in rows padded by 16 bytes (a warp's 16-byte reads
 // of 8 consecutive rows then hit distinct banks), then col[S:S+64], col[R:R+64].
 template <typename T> constexpr int kLd = kTile + 16 / sizeof(T);
 template <typename T> constexpr int kSlot = kTile * kLd<T> + 2 * kTile;
 template <typename T> constexpr int kRing = sizeof(T) == 4 ? 3 : 2;  // streamed-tile slots
-
-int sm_count() {
-  int dev = 0, n = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-  return n;
-}
 
 // `work`: the barrier counter, then each block's share of y.v per window (K, G)
 size_t work(int K, int, int) { return kBarrierElems + (size_t)K * sm_count(); }
@@ -91,39 +89,6 @@ size_t dynamic_smem(int K, int nb, int n_res, int n_cache, int n_units) {
   const size_t tail = ((size_t)K * (2 * nb + 7) * sizeof(T) + 15) / 16 * 16;
   return ((size_t)(n_res + kRing<T>) * kSlot<T> + ((size_t)n_cache * 2 * nb + n_units) * kRows) *
              sizeof(T) + tail;
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// All blocks of the (cooperative, so co-resident) grid meet here; writes
-// before it are visible to every block after it. A barrier still open after
-// about ten seconds means a block never arrived: the kernel traps (the
-// launch fails) rather than spinning on.
-__device__ __forceinline__ void grid_sync(unsigned* bar, unsigned& target) {
-  target += gridDim.x;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    atomicAdd(bar, 1u);
-    const long long start = clock64();
-    unsigned seen;
-    do {
-      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(seen) : "l"(bar) : "memory");
-      if (clock64() - start > 20000000000LL) __trap();
-    } while (seen < target);
-    __threadfence();
-  }
-  __syncthreads();
 }
 
 struct TileAt {

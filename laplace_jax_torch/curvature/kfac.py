@@ -4,7 +4,8 @@ exact Fisher of a classifier, Dense and Conv layers).
 Normalization contract, as in the JAX package:
 
 - activation factor ``A = (1/(N*T)) sum_{n,t} a a^T`` (T = spatial positions
-  of a conv's output; T = 1 for Dense);
+  of a conv's output; for Dense the positions between batch and feature
+  axes, 1 on a 2-d input: "expand" KFAC);
 - gradient factor ``B = sum_{c} sum_{n,t} g g^T`` over the C square-root
   Hessian cotangent sweeps, a per-batch sum;
 - a kernel leaf is the group ``(A, B)`` (input-major ``A kron B`` under the
@@ -27,7 +28,7 @@ def conv_patches(inputs: torch.Tensor, spec: dict) -> torch.Tensor:
     """Patches of an NCHW conv input as (B, T, kh*kw*c_in), feature order
     (kh, kw, c_in) like the flax kernel flatten."""
     p = im2col(inputs, spec["kernel_size"], spec["strides"], spec["padding"],
-               channels_last=False)
+               channels_last=False, dilation=spec.get("dilation"))
     return p.reshape(p.shape[0], -1, p.shape[-1])
 
 
@@ -64,9 +65,9 @@ def kfac_factors(model, x, y, N: int, lossfunc, last_layer_path=None):
             patches = conv_patches(t.inputs.detach(), t.spec)
             a = patches.reshape(-1, patches.shape[-1])
             A_facs[t.path] = a.T @ a / (N * patches.shape[1])
-        else:
-            a = t.inputs.detach()
-            A_facs[t.path] = a.T @ a / N
+        else:  # (B, ..., in): every position between batch and feature is a row
+            a = t.inputs.detach().reshape(-1, t.inputs.shape[-1])
+            A_facs[t.path] = a.T @ a / (N * (a.shape[0] // t.inputs.shape[0]))
         g2 = g.reshape(-1, g.shape[-1])
         B_facs[t.path] = g2.T @ g2
 

@@ -1,7 +1,9 @@
 """Model adapter with layer taps (port of `laplace_jax/nnmodel.py`, Dense
 and Conv taps, a trainable subset of leaves and the last-layer helpers).
 
-`apply_with_taps` plants a forward hook on every `Conv` and `nn.Linear`.
+`apply_with_taps` plants a forward hook on every `nn.Linear`, on the
+port's own `Conv`, and on every `nn.Conv2d` with `groups == 1` and zero
+padding (grouped and circular convs are not tapped yet).
 The hook records the layer's input and adds a zero tensor that requires
 grad to the layer's output: the gradient with respect to that zero
 offset is the layer's output gradient, which KFAC needs for its B factor
@@ -33,11 +35,31 @@ class LayerTap:
     kind: str  # "dense" | "conv"
     inputs: torch.Tensor  # layer input (NCHW for convs)
     offset: torch.Tensor  # zero added to the output, requiring grad
-    spec: Optional[dict] = None  # conv: kernel_size, strides, padding
+    spec: Optional[dict] = None  # conv: kernel_size, strides, padding, dilation
 
 
 def _module_path(name: str) -> tuple:
     return tuple(name.split(".")) if name else ()
+
+
+def conv_spec(mod: nn.Module) -> Optional[dict]:
+    """The patch spec (`ops/im2col.py` arguments) of a conv the KFAC taps
+    take, or None. `nn.Conv2d` padding becomes (lo, hi) pairs: an int or a
+    tuple pads both sides alike; torch's `'same'` (stride 1 only) pads
+    `d (k - 1)` in all, the odd one at the end, as flax's `'SAME'` does."""
+    if isinstance(mod, Conv):
+        return dict(kernel_size=mod.kernel_size, strides=mod.strides, padding=mod.padding)
+    if not isinstance(mod, nn.Conv2d) or mod.groups != 1 or mod.padding_mode != "zeros":
+        return None
+    if mod.padding == "valid":
+        pads = [(0, 0)] * 2
+    elif mod.padding == "same":
+        totals = [d * (k - 1) for k, d in zip(mod.kernel_size, mod.dilation)]
+        pads = [(t // 2, t - t // 2) for t in totals]
+    else:
+        pads = [(p, p) for p in mod.padding]
+    return dict(kernel_size=mod.kernel_size, strides=mod.stride, padding=pads,
+                dilation=mod.dilation)
 
 
 class NNModel:
@@ -87,9 +109,8 @@ class NNModel:
             path = _module_path(name)
             if paths is not None and path not in paths:
                 continue
-            if isinstance(mod, Conv):
-                spec = dict(kernel_size=mod.kernel_size, strides=mod.strides,
-                            padding=mod.padding)
+            spec = conv_spec(mod)
+            if spec is not None:
                 handles.append(mod.register_forward_hook(make_hook(path, "conv", spec)))
             elif isinstance(mod, nn.Linear):
                 handles.append(mod.register_forward_hook(make_hook(path, "dense", None)))

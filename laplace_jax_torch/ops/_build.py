@@ -38,11 +38,16 @@ _PANEL_LIB = {"panel_f32": _PANEL, "panel_f64": _PANEL,
 _PANEL_V4 = (_I, [_P] * 9 + [_I] * 6 + [_P, _I, _I, _I, _P])
 _PANEL_V4_LIB = {"panel_f32": _PANEL_V4, "panel_f64": _PANEL_V4, "ring_slots": (_I, [_I]),
                  "work_elems": (_Z, [_I] * 3), "part_elems": (_Z, [_I] * 2)}
+# latrd's panel takes its block count and two caching switches before the
+# stream; smem_bytes(K, m, off, nb, n_cta, cache_window, cache_rows, itemsize)
+_PANEL_V1 = (_I, [_P] * 9 + [_I] * 9 + [_P])
+_PANEL_V1_LIB = {"panel_f32": _PANEL_V1, "panel_f64": _PANEL_V1, "smem_bytes": (_Z, [_I] * 8),
+                 "work_elems": (_Z, [_I] * 3), "part_elems": (_Z, [_I] * 2)}
 _SYRK = (_I, [_P, _P, _I, _I, _P])  # A, H, R, P, stream
 # each source's C entry points, as (result type, argument types); every
 # library also exports `error_string(int)`
 SIGNATURES = {
-    "latrd": _PANEL_LIB,
+    "latrd": _PANEL_V1_LIB,
     "latrd_v4": _PANEL_V4_LIB,
     "latrd_v3": _PANEL_LIB,
     "latrd_v2": _PANEL_LIB,

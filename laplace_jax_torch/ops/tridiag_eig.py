@@ -30,7 +30,7 @@ from laplace_jax_torch.ops.latrd_v2 import tridiagonalize_latrd_v2
 from laplace_jax_torch.ops.latrd_v3 import tridiagonalize_latrd_v3
 from laplace_jax_torch.ops.latrd_v4 import tridiagonalize_latrd_v4
 from laplace_jax_torch.ops.tridiag import apply_q, tridiagonalize
-from laplace_jax_torch.utils.device import full_f32_matmuls, resolve_device
+from laplace_jax_torch.utils.device import full_f32, resolve_device
 
 __all__ = ["tridiag_eigh", "eigh_stack_ts"]
 
@@ -349,6 +349,7 @@ def _stage1_impl(n: int, stage1: str, device: torch.device) -> str:
     return "latrd_v4" if n >= 2304 else "latrd"
 
 
+@full_f32()
 def eigh_stack_ts(stack: torch.Tensor, nb: int = 64, stage1: str = "auto", device=None):
     """Two-stage symmetric eigendecomposition of a (k, n, n) stack: blocked
     Householder tridiagonalization -> batched secular D&C -> WY
@@ -361,7 +362,6 @@ def eigh_stack_ts(stack: torch.Tensor, nb: int = 64, stage1: str = "auto", devic
     """
     dev = resolve_device(device)
     stack = stack.to(dev)
-    full_f32_matmuls()
     n = stack.shape[-1]
     impl = _stage1_impl(n, stage1, dev)
     if impl not in STAGE1:

@@ -2,10 +2,13 @@
 
 Entry points run on the card unless the caller asks for the CPU: with no
 device given they take `cuda`, and they raise when there is none. Nothing
-falls back to the CPU silently.
+falls back to the CPU silently. `full_f32` scopes the float32 precision
+settings to the port's own heavy calls.
 """
 
 from __future__ import annotations
+
+from contextlib import contextmanager
 
 import torch
 
@@ -22,14 +25,53 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def full_f32_matmuls() -> None:
-    """Pin float32 products to full float32 precision.
+def _precision_knobs() -> list:
+    """The `fp32_precision` settings of this torch (the newer precision
+    API; absent before torch 2.9)."""
+    b = torch.backends
+    knobs = [b, b.cuda.matmul, b.cudnn, getattr(b.cudnn, "conv", None),
+             getattr(b.cudnn, "rnn", None)]
+    return [k for k in knobs if k is not None and hasattr(k, "fp32_precision")]
+
+
+def _read(get):
+    """A precision setting, or None where torch refuses to read it (it
+    raises once the legacy and the newer API have both been used)."""
+    try:
+        return get()
+    except RuntimeError:
+        return None
+
+
+@contextmanager
+def full_f32():
+    """Within the scope, float32 products and cuDNN convolutions run in full
+    float32 (no TF32); on exit, also on an exception, every precision
+    setting is as it was.
 
     The eigensolver's trailing rank-2nb updates diverge O(1) after a few
     panels when products round to TF32 (the JAX package documents the same
     failure at reduced matmul precision, `laplace_jax/ops/latrd_pallas.py`,
-    `tridiagonalize_pallas`), and the KFAC factors feed that solver, so both
-    the matmul and the cuDNN convolution switches are set explicitly.
+    `tridiagonalize_pallas`), and the KFAC factors feed that solver, so the
+    port's entry points run in this scope; the caller's own code keeps its
+    settings. Scopes nest.
     """
+    matmul = _read(lambda: torch.backends.cuda.matmul.allow_tf32)
+    cudnn = _read(lambda: torch.backends.cudnn.allow_tf32)
+    precision = _read(torch.get_float32_matmul_precision)
+    knobs = [(k, k.fp32_precision) for k in _precision_knobs()]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        # the legacy flags, then the matmul precision, then the newer API's
+        # settings: this order gives back each state torch can be left in
+        if matmul is not None:
+            torch.backends.cuda.matmul.allow_tf32 = matmul
+        if cudnn is not None:
+            torch.backends.cudnn.allow_tf32 = cudnn
+        if precision is not None:
+            torch.set_float32_matmul_precision(precision)
+        for knob, value in knobs:
+            knob.fp32_precision = value

@@ -26,6 +26,7 @@ import torch
 
 from laplace_jax_torch.ops.eigh_dc import eigh_pooled_dc
 from laplace_jax_torch.ops.tridiag_eig import eigh_stack_ts
+from laplace_jax_torch.utils.device import full_f32
 from laplace_jax_torch.utils.linalg import symeig
 
 __all__ = ["Kron", "KronDecomposed"]
@@ -115,6 +116,7 @@ class Kron:
     def group_sizes(self) -> list[int]:
         return _group_sizes(self.kfacs)
 
+    @full_f32()
     def decompose(self, damping: bool = False) -> "KronDecomposed":
         """Eigendecompose every factor, one batched call per (shape, dtype),
         or, with `EIGH_IMPLEMENTATION = "dc"`, one pooled D&C call for all

@@ -17,7 +17,11 @@ syrk (order over up to 1280 rows).
 The v4 panel is one cooperative launch per panel with a tile schedule from
 `ops/latrd_v4.panel_plan`; it is held against its plain version at every
 window the ResNet-18 main path gives it (first and last panel, both
-dtypes) and on windows with fewer live tiles than the card has SMs.
+dtypes) and on windows with fewer live tiles than the card has SMs. The v1
+panel is one cooperative launch per panel too (`ops/latrd.panel_plan`),
+held against its plain version at every main-path window, first and last
+panel, both dtypes, on windows whose rows it streams, and bitwise against
+itself (no atomics, like v3).
 """
 
 import numpy as np
@@ -103,6 +107,27 @@ def _assert_panel_close(got, ref, tol):
         torch.testing.assert_close(g, r, atol=tol * float(r.abs().max()), rtol=0)
 
 
+def _assert_v1_panel(got, A, off, q_base, n_real, tol):
+    """v1 against its plain version on the same window. Float64: within
+    `tol` of the plain panel. Float32: against the plain panel computed in
+    float64 on the same float32 input, within `tol` or within twice the
+    plain float32 panel's own error there, whichever is larger. At a
+    window's tail panel, where the trailing block shrinks to nothing inside
+    the panel, float32 itself is further than 2e-4 off float64, and two
+    float32 summation orders differ by as much (the four-launch kernel this
+    one replaced missed 2e-4 against the plain float32 panel there too)."""
+    ref = latrd_panel_plain(A, off, q_base, n_real, 64)
+    if A.dtype == torch.float64:
+        _assert_panel_close(got, ref, tol)
+        return
+    exact = latrd_panel_plain(A.double(), off, q_base, n_real, 64)
+    for g, r, x in zip(got, ref, exact):
+        scale = float(x.abs().max())
+        err_kernel = float((g.double() - x).abs().max()) / scale
+        err_plain = float((r.double() - x).abs().max()) / scale
+        assert err_kernel <= max(tol, 2 * err_plain), (err_kernel, err_plain)
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10), (torch.float32, 2e-4)],
                          ids=["float64", "float32"])
 @pytest.mark.parametrize("K,m,off", [pytest.param(K, m, off, id=f"{K}x{m}-off{off}")
@@ -116,6 +141,66 @@ def test_v4_panel_at_main_path_windows(cuda, K, m, off, dtype, tol):
     torch.cuda.synchronize()
     assert latrd_panel_v4.launches == launches + 1
     _assert_panel_close(got, latrd_panel_v4_plain(A, off, 0, m, 64), tol)
+
+
+def _v1_windows():
+    """(K, m, offs): every window stage 1 gives the v1 kernel for ResNet-18's
+    classes 512 (K=6), 576 (K=5), 1152 (K=4) and KronLL's 512 (K=1), with
+    its first and last panel (`tests/test_torch_latrd_v1_plan.py` derives
+    the same panels)."""
+    out = {}
+    for K, n in ((6, 512), (5, 576), (4, 1152), (1, 512)):
+        S = max(128, -(-(-(-n // 4)) // 128) * 128)
+        n_pad, n_cols = -(-n // S) * S, n - 2
+        for q in range(0, n_cols, S):
+            last = (-(-min(S, n_cols - q) // 64) - 1) * 64
+            out[(K, n_pad - q)] = sorted({0, last})
+    return [(K, m, off) for (K, m), offs in sorted(out.items()) for off in offs]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10), (torch.float32, 2e-4)],
+                         ids=["float64", "float32"])
+@pytest.mark.parametrize("K,m,off", [pytest.param(K, m, off, id=f"{K}x{m}-off{off}")
+                                     for K, m, off in _v1_windows()])
+def test_v1_panel_at_main_path_windows(cuda, K, m, off, dtype, tol):
+    """The persistent v1 panel against its plain version (both on the card)
+    at the first and the last panel of every main-path window; (4, 1152)
+    and (5, 768) at offset 0 stream their rows in float64."""
+    A = _card_window(m + off + 1, K, m, dtype, cuda)
+    launches = latrd_panel.launches
+    got = latrd_panel(A, off, 0, m, 64)
+    torch.cuda.synchronize()
+    assert latrd_panel.launches == launches + 1
+    _assert_v1_panel(got, A, off, 0, m, tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10), (torch.float32, 2e-4)],
+                         ids=["float64", "float32"])
+def test_v1_panel_streaming_its_rows(cuda, dtype, tol):
+    """40 windows of 768, 3 blocks a window of 256 rows each. In float32 a
+    block keeps only its rows of U and W in shared memory, in float64
+    nothing; padded rows too."""
+    from laplace_jax_torch.ops.latrd import panel_plan
+
+    n_cta = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = panel_plan(40, 768, 0, 64, torch.tensor([], dtype=dtype).element_size(), n_cta)
+    assert not plan.cache_window and plan.cache_rows == (dtype == torch.float32)
+    A = _window(12, 40, 768, 760, dtype).to(cuda)
+    for off in (0, 704):
+        got = latrd_panel(A, off, 3, 763, 64)
+        torch.cuda.synchronize()
+        _assert_v1_panel(got, A, off, 3, 763, tol)
+
+
+def test_v1_repeats_bitwise(cuda):
+    """Two v1 launches on one float32 window give the same bits: every sum
+    has one order (no atomics)."""
+    A = _window(6, 4, 1152, 1150, torch.float32).to(cuda)
+    first = latrd_panel(A, 0, 0, 1150, 64)
+    second = latrd_panel(A, 0, 0, 1150, 64)
+    torch.cuda.synchronize()
+    for g, r in zip(first, second):
+        assert torch.equal(g, r)
 
 
 def test_v4_panel_without_row_cache(cuda):
@@ -192,11 +277,12 @@ def test_v3_repeats_bitwise(cuda):
 @pytest.mark.parametrize("lib_name", ["latrd", "latrd_v4", "latrd_v3", "latrd_v2"])
 def test_panel_writes_stay_inside_the_scratch_it_declares(cuda, lib_name):
     """Each panel library sizes its own `part` and `work` scratch
-    (`part_elems`, `work_elems`; v4's work holds its grid barrier's counter
-    and each block's share of y.v): a guard placed past each keeps its
-    bits through a whole panel, and v4's schedule table is left as it was."""
+    (`part_elems`, `work_elems`; v4's and v1's work holds the grid
+    barrier's counter and each block's partial sums): a guard placed past
+    each keeps its bits through a whole panel, and v4's schedule table is
+    left as it was."""
     from laplace_jax_torch.ops import _build
-    from laplace_jax_torch.ops.latrd import panel_buffers
+    from laplace_jax_torch.ops.latrd import _plan_args, panel_buffers
     from laplace_jax_torch.ops.latrd_v4 import _plans, _schedule_args
 
     K, m, nb, guard, mark = 3, 384, 64, 4096, 1234.5
@@ -206,15 +292,17 @@ def test_panel_writes_stay_inside_the_scratch_it_declares(cuda, lib_name):
     sizes = {key: buf[key].numel() for key in ("part", "work")}
     for key, n in sizes.items():
         buf[key] = torch.full((n + guard,), mark, device=cuda)
-    extra = _schedule_args(A, 0, nb) if lib_name == "latrd_v4" else ()
-    table = _plans[(K, m, 0, nb, A.dtype, A.device)][0].clone() if extra else None
+    extra = {"latrd_v4": lambda: _schedule_args(A, 0, nb),
+             "latrd": lambda: _plan_args(A, 0, nb)}.get(lib_name, tuple)()
+    v4 = lib_name == "latrd_v4"
+    table = _plans[(K, m, 0, nb, A.dtype, A.device)][0].clone() if v4 else None
     stream = torch.cuda.current_stream(cuda).cuda_stream
     assert lib.panel_f32(A.data_ptr(), *(b.data_ptr() for b in buf.values()),
                          K, m, nb, 0, 0, m - 5, *extra, stream) == 0
     torch.cuda.synchronize()
     for key, n in sizes.items():
         assert bool((buf[key][n:] == mark).all()), f"{lib_name} wrote past {key}"
-    if extra:
+    if v4:
         assert torch.equal(_plans[(K, m, 0, nb, A.dtype, A.device)][0], table)
 
 
