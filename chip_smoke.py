@@ -17,8 +17,11 @@ Phases, each printing one JSON line; any failed check exits non-zero:
              v1 also on a (17, 128) window at offset 64 (7 blocks a window
              of 9 or 10 rows, next to no work a column), the cost of its
              2 nb grid barriers and phase latencies;
-             the syrk kernel at the last-layer GGN shape (1280, 5130)
-             float32 and a ragged (37, 130) float64 against `syrk_plain`;
+             the syrk kernel against `syrk_plain`, bitwise over two
+             launches and exactly symmetric, at the last-layer GGN shape
+             (1280, 5130) and at (1280, 5131) (P odd: 4-byte copies) in
+             float32, and at (1280, 5130) and (37, 130) in float64, each
+             timed; its ptxas registers and spills, its bound fraction;
 4. reference - width-8 ResNet-18 fits in float64 on the card against the
              same fits on the CPU: all-weights KFAC (its 576 class runs the
              v1 kernel; LAPACK on the CPU) and last-layer Full (the float64
@@ -39,7 +42,9 @@ Phases, each printing one JSON line; any failed check exits non-zero:
              FullLL (the syrk kernel, 4 launches; its GGN against a float64
              one; marglik tuning; probit predictive; 100 GLM predictive
              samples on 128 inputs) and DiagLL (against FullLL's diagonal),
-             each kernel's launches read from its own fit;
+             each kernel's launches read from its own fit; a second FullLL
+             fit under `torch.profiler` gives the device time of its syrk
+             launches (`full_syrk_ms`, syrk's `main_path_ms`);
 7. eigensolvers - on the same network and data, the pooled spectral D&C
              through the user's entry point (`EIGH_IMPLEMENTATION = "dc"`,
              a second `KronLaplace` fit) against float64 `eigvalsh` and the
@@ -59,6 +64,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -78,7 +84,10 @@ RECON_TOL = 1e-4  # ||Q L Q^T - A|| / ||A|| and max |Q^T Q - I| in float32
 # syrk kernel vs syrk_plain, max |kernel - plain| / max |plain|: float32
 # sums up to 1280 products per entry in another order; float64 likewise
 SYRK_TOL = {"float32": 1e-4, "float64": 1e-10}
-SYRK_SHAPES = [((1280, 5130), "float32"), ((37, 130), "float64")]  # main-path shape first
+# the main-path shape first (8-byte copies), then P odd (4-byte copies),
+# float64 at the main-path shape and a ragged float64 shape
+SYRK_SHAPES = [((1280, 5130), "float32"), ((1280, 5131), "float32"), ((1280, 5130), "float64"),
+               ((37, 130), "float64")]
 GGN_TOL = 1e-4  # FullLL float32 H vs the float64 GGN, relative to its largest entry
 DIAG_TOL = 1e-5  # DiagLL H vs diag(FullLL H), relative to its largest entry
 
@@ -227,13 +236,30 @@ def syrk_bound_ms(R: int, P: int, itemsize: int, flops_peak: float):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def syrk_phase(seed, device):
-    """The syrk kernel against `syrk_plain` on the same inputs, at the
-    last-layer GGN shape in float32 and a ragged float64 shape; times at
-    the first."""
+def ptxas_registers(log: str) -> dict:
+    """{kernel: "N registers, S bytes spill stores"} from `-Xptxas -v`."""
+    out, name, spill = {}, None, ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            m = re.search(r"k_([a-z]+)I([fd])Li(\d+)E", name)  # k_syrk<float, V>
+            if m:
+                name = f"k_{m[1]}<{'float' if m[2] == 'f' else 'double'}, {m[3]}>"
+        elif "spill stores" in line:
+            spill = line.split(",")[1].strip()
+        elif "Used" in line and "registers" in line and name:
+            out[name] = f"{line.split('Used ')[1].split(',')[0]}, {spill}"
+    return out
+
+
+def syrk_phase(seed, device, ptxas_log):
+    """The syrk kernel against `syrk_plain` on the same inputs, bitwise over
+    two launches and exactly symmetric, at the last-layer GGN shape and a
+    shape with P odd in float32 and at two float64 shapes; timed at each,
+    with the plain version, `torch.mm` and the bound at the first."""
     import torch
 
-    from laplace_jax_torch.ops.syrk import syrk, syrk_plain
+    from laplace_jax_torch.ops.syrk import syrk, syrk_plain, syrk_plan
 
     gen = torch.Generator(device=device).manual_seed(seed)
     row = None
@@ -241,24 +267,31 @@ def syrk_phase(seed, device):
         dtype = getattr(torch, dt)
         A = torch.randn(R, P, generator=gen, device=device, dtype=dtype)
         got, ref = syrk(A), syrk_plain(A)
+        again = syrk(A)
         torch.cuda.synchronize()
         max_abs_err = float((got - ref).abs().max())
         rel = max_abs_err / float(ref.abs().max())
         symmetric = bool(torch.equal(got, got.mT))
+        bitwise = bool(torch.equal(got, again))
+        plan = syrk_plan(R, P, dtype)
         res = dict(phase="kernel", name="syrk", shape=[R, P], dtype=dt, max_abs_err=max_abs_err,
-                   rel_err=rel, tol=SYRK_TOL[dt], exactly_symmetric=symmetric)
+                   rel_err=rel, tol=SYRK_TOL[dt], exactly_symmetric=symmetric,
+                   repeat_bitwise=bitwise, tile=plan.tile, copy_bytes=plan.copy_bytes,
+                   blocks=len(plan.tiles), smem_bytes=plan.smem_bytes,
+                   ms=cuda_ms(lambda: syrk(A), reps=20))
         check(rel <= SYRK_TOL[dt], f"syrk {dt} {(R, P)}: relative error {rel:.3e} > {SYRK_TOL[dt]}")
         check(symmetric, f"syrk {dt} {(R, P)}: output is not exactly symmetric")
+        check(bitwise, f"syrk {dt} {(R, P)}: two launches differ")
         if row is None:
             bound_ms, bound_by = syrk_bound_ms(R, P, A.element_size(),
                                                F32_FLOPS if dt == "float32" else F64_FLOPS)
             res.update(route="cuda", source="laplace_jax_torch/csrc/syrk.cu",
                        replaces="laplace_jax/ops/syrk.py:37",
-                       ms=cuda_ms(lambda: syrk(A), reps=20),
                        plain_ms=cuda_ms(lambda: syrk_plain(A), reps=20),
-                       bound_ms=bound_ms, bound_by=bound_by,
+                       bound_ms=bound_ms, bound_by=bound_by, bound_fraction=bound_ms / res["ms"],
                        library_ms=cuda_ms(lambda: torch.mm(A.mT, A), reps=20),
-                       library_call="torch.mm(A.mT, A), TF32 off")
+                       library_call="torch.mm(A.mT, A), TF32 off",
+                       ptxas=ptxas_registers(ptxas_log))
             row = res
         emit(res)
     return row
@@ -512,6 +545,24 @@ def ll_ggn_f64(la, loader):
     return H
 
 
+def full_syrk_time(net, loader, device):
+    """The FullLL fit's syrk launches timed apart: a second fit of the same
+    flavor on the same data under `torch.profiler`, and the device time of
+    each syrk kernel it ran (`full_syrk_ms` is their sum)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from laplace_jax_torch import Laplace
+
+    la = Laplace(net, "classification", "last_layer", "full", device=device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        la.fit(loader)
+        torch.cuda.synchronize()
+    ms = [(e.time_range.end - e.time_range.start) / 1e3 for e in prof.events()
+          if e.device_type.name == "CUDA" and "k_syrk" in e.name]
+    return dict(full_syrk_ms=sum(ms), full_syrk_launch_ms=ms)
+
+
 def last_layer_phase(seed, device):
     """Last-layer Laplace at full width on the main path's network and data:
     the default KronLL (v1 kernel), FullLL (syrk kernel) and DiagLL."""
@@ -551,6 +602,7 @@ def last_layer_phase(seed, device):
     H64 = ll_ggn_f64(full, loader)
     res["full_H_rel_err_vs_f64"] = float((full.H.double() - H64).abs().max() / H64.abs().max())
     res["full_H_exactly_symmetric"] = bool(torch.equal(full.H, full.H.mT))
+    res.update(full_syrk_time(net, loader, device))
     t0 = time.perf_counter()
     full.optimize_prior_precision(method="marglik", n_steps=100)
     torch.cuda.synchronize()
@@ -599,7 +651,9 @@ def last_layer_phase(seed, device):
     check(res["full_glm_samples_row_sum_err"] <= 1e-5, "GLM predictive samples do not sum to 1")
     check(res["diag_H_rel_err_vs_full"] <= DIAG_TOL,
           f"DiagLL H off diag(FullLL H) by {res['diag_H_rel_err_vs_full']:.3e} > {DIAG_TOL}")
-    return {"syrk": full_launches["syrk"]}
+    check(len(res["full_syrk_launch_ms"]) == 4,
+          f"the profiled FullLL fit ran {len(res['full_syrk_launch_ms'])} syrk kernels, not 4")
+    return {"syrk": full_launches["syrk"]}, res["full_syrk_ms"]
 
 
 def class_stacks(kfacs):
@@ -756,7 +810,7 @@ def main() -> None:
                               for dt, size in (("float32", 4), ("float64", 8))}))
 
     rows = [kernel_phase(*row, args.seed, device) for row in KERNELS]
-    rows.append(syrk_phase(args.seed, device))
+    rows.append(syrk_phase(args.seed, device, _build.build_log("syrk")))
     reference_phase(args.seed, device)
     # each kernel's launches from the path that runs it: v1 and v4 from the
     # all-weights main path, syrk from the last-layer FullLL fit, v3 and v2
@@ -764,7 +818,9 @@ def main() -> None:
     main = main_path(args.seed, device)
     window_phase(rows, main["panels"], args.seed, device, smi)
     launches = dict(main["launches"])
-    launches.update(last_layer_phase(args.seed, device))
+    ll_launches, full_syrk_ms = last_layer_phase(args.seed, device)
+    launches.update(ll_launches)
+    next(r for r in rows if r["name"] == "syrk")["main_path_ms"] = full_syrk_ms
     launches.update(eigensolvers_phase(args.seed, device, main))
 
     keys = ("name", "route", "source", "replaces", "max_abs_err", "ms", "plain_ms",

@@ -44,6 +44,8 @@ _PANEL_V1 = (_I, [_P] * 9 + [_I] * 9 + [_P])
 _PANEL_V1_LIB = {"panel_f32": _PANEL_V1, "panel_f64": _PANEL_V1, "smem_bytes": (_Z, [_I] * 8),
                  "work_elems": (_Z, [_I] * 3), "part_elems": (_Z, [_I] * 2)}
 _SYRK = (_I, [_P, _P, _I, _I, _P])  # A, H, R, P, stream
+# syrk_geometry(itemsize, P, int out[7]): the launch geometry (ops/syrk.syrk_plan)
+_SYRK_GEOMETRY = (_I, [_I, _I, ctypes.POINTER(_I)])
 # each source's C entry points, as (result type, argument types); every
 # library also exports `error_string(int)`
 SIGNATURES = {
@@ -51,7 +53,7 @@ SIGNATURES = {
     "latrd_v4": _PANEL_V4_LIB,
     "latrd_v3": _PANEL_LIB,
     "latrd_v2": _PANEL_LIB,
-    "syrk": {"syrk_f32": _SYRK, "syrk_f64": _SYRK},
+    "syrk": {"syrk_f32": _SYRK, "syrk_f64": _SYRK, "syrk_geometry": _SYRK_GEOMETRY},
 }
 SOURCES = tuple(SIGNATURES)
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

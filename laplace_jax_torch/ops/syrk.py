@@ -7,21 +7,82 @@ float64; on a CPU tensor it runs `syrk_plain`, the JAX package's
 not take raises. (The JAX wrapper falls back to the einsum for unaligned
 shapes; the CUDA kernel guards its ragged tiles instead.)
 
+`syrk_plan` is the kernel's launch geometry (its lower tiles in launch
+order, tile edge, chunk, ring stages, copy width, shared memory), which
+the card tests hold against the library's own `syrk_geometry`;
+`syrk_tiled` computes H the way the kernel does, tile by tile, for the
+CPU tests.
+
 `syrk.launches` counts the kernel launches on the card.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from laplace_jax_torch.ops import _build
 
-__all__ = ["syrk", "syrk_plain"]
+__all__ = ["SyrkPlan", "syrk", "syrk_plain", "syrk_plan", "syrk_tiled"]
+
+CHUNK = 32  # rows of A a ring slot holds
+STAGES = 2  # ring slots
+THREADS = 256
+
+
+class SyrkPlan(NamedTuple):
+    tile: int  # output tile edge
+    thread_tile: int  # a thread's register tile edge (thread_tile ** 2 accumulators)
+    threads: int
+    chunk: int
+    stages: int
+    copy_bytes: int  # cp.async width (A at a 16-byte aligned address); no padded copy
+    smem_bytes: int  # dynamic shared memory a block: the ring or the epilogue's tile
+    n_chunks: int
+    tiles: tuple  # the lower tiles (ti, tj), ti >= tj, one block each, in launch order
+
+
+def syrk_plan(R: int, P: int, dtype: torch.dtype) -> SyrkPlan:
+    """The launch geometry of `csrc/syrk.cu` for A (R, P) of `dtype`."""
+    size = torch.empty(0, dtype=dtype).element_size()
+    if size not in (4, 8) or R < 0 or P < 1:
+        raise ValueError(f"syrk plan: shape {(R, P)}, dtype {dtype}")
+    sub = 16 // size  # one 16-byte vector a fragment
+    tile, n = 32 * sub, -(-P // (32 * sub))
+    row = P * size
+    copy = 16 if row % 16 == 0 else 8 if row % 8 == 0 else 4
+    smem = max(STAGES * 2 * CHUNK * tile, tile * (tile + 1)) * size
+    tiles = tuple((i, j) for i in range(n) for j in range(i + 1))
+    return SyrkPlan(tile, 2 * sub, THREADS, CHUNK, STAGES, copy, smem, -(-R // CHUNK), tiles)
 
 
 def syrk_plain(A: torch.Tensor) -> torch.Tensor:
     """AᵀA in plain PyTorch."""
     return torch.einsum("rp,rq->pq", A, A)
+
+
+def syrk_tiled(A: torch.Tensor) -> torch.Tensor:
+    """AᵀA as the kernel computes it: zero-filled strips, each lower tile
+    summed over the rows of A in the kernel's order (chunk by chunk, k by
+    k), then each tile's lower part written and mirrored. Any device; a
+    reference for tests (one Python step per row of A)."""
+    R, P = A.shape
+    plan = syrk_plan(R, P, A.dtype)
+    t = plan.tile
+    n = -(-P // t)
+    padded = A.new_zeros(plan.n_chunks * plan.chunk, n * t)
+    padded[:R, :P] = A
+    strips = padded.view(-1, n, t)  # strips[k, s] = row k of strip s
+    ti = torch.tensor([i for i, _ in plan.tiles], device=A.device)
+    tj = torch.tensor([j for _, j in plan.tiles], device=A.device)
+    acc = A.new_zeros(len(plan.tiles), t, t)
+    for k in range(strips.shape[0]):
+        acc += strips[k, ti][:, :, None] * strips[k, tj][:, None, :]
+    H = A.new_zeros(n * t, n * t)
+    H.view(n, t, n, t)[ti, :, tj, :] = acc
+    low = torch.tril(H)  # a diagonal tile's lower half; the others lie below it
+    return (low + torch.tril(low, -1).mT)[:P, :P]
 
 
 def syrk(A: torch.Tensor) -> torch.Tensor:

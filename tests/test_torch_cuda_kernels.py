@@ -12,7 +12,9 @@ JAX package on the CPU. Tolerances, relative to each output's largest
 entry: float64 1e-10 (only the summation order differs); float32 2e-4 for
 the panels (order, and the v4 kernel's atomics, whose order changes from
 run to run; v3 sums in one fixed order and repeats bitwise) and 1e-4 for
-syrk (order over up to 1280 rows).
+syrk (order over up to 1280 rows). syrk is held at every P mod 4 (its
+copy width), at an unaligned address, bitwise over two launches, and its
+launch geometry against `ops/syrk.syrk_plan`.
 
 The v4 panel is one cooperative launch per panel with a tile schedule from
 `ops/latrd_v4.panel_plan`; it is held against its plain version at every
@@ -23,6 +25,8 @@ held against its plain version at every main-path window, first and last
 panel, both dtypes, on windows whose rows it streams, and bitwise against
 itself (no atomics, like v3).
 """
+
+import ctypes
 
 import numpy as np
 import pytest
@@ -44,7 +48,8 @@ from laplace_jax_torch.ops.latrd_v4 import (
     latrd_panel_v4_plain,
     tridiagonalize_latrd_v4,
 )
-from laplace_jax_torch.ops.syrk import syrk, syrk_plain
+from laplace_jax_torch.ops import _build
+from laplace_jax_torch.ops.syrk import syrk, syrk_plain, syrk_plan
 from laplace_jax_torch.ops.tridiag import apply_q
 
 # several test workers share the CPU: one intra-op thread each
@@ -331,11 +336,19 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         latrd_panel_v2(A, 4, 0, 128, 8)  # off % 8
 
 
+# P mod 4 = 0, 1, 2, 3 around the last-layer shape (1280, 5130) and below
+# one tile; a row of P float32 is 16-, 4-, 8- and 4-byte aligned, which
+# picks the kernel's copy width; R = 0 gives zeros
+SYRK_SHAPES = [(1280, 5128), (1280, 5129), (1280, 5130), (1279, 5131), (256, 512),
+               (37, 130), (17, 125), (5, 64), (3, 7), (0, 64), (1, 1)]
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10), (torch.float32, 1e-4)])
-@pytest.mark.parametrize("shape", [(37, 130), (256, 512), (1280, 5130)], ids=str)
+@pytest.mark.parametrize("shape", SYRK_SHAPES, ids=str)
 def test_syrk_matches_plain(cuda, dtype, tol, shape):
-    """Ragged, aligned and the last-layer main-path shape; the kernel's
-    output is exactly symmetric."""
+    """Every copy width, ragged and aligned shapes and the last-layer
+    main-path shape: the kernel's output is exactly symmetric and the same
+    bit for bit on a second launch."""
     A = torch.as_tensor(np.random.default_rng(7).standard_normal(shape), dtype=dtype).to(cuda)
     launches = syrk.launches
     got = syrk(A)
@@ -344,6 +357,31 @@ def test_syrk_matches_plain(cuda, dtype, tol, shape):
     ref = syrk_plain(A)
     torch.testing.assert_close(got, ref, atol=tol * float(ref.abs().max()), rtol=0)
     assert torch.equal(got, got.mT)
+    assert torch.equal(syrk(A), got)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10), (torch.float32, 1e-4)])
+def test_syrk_at_an_unaligned_address(cuda, dtype, tol):
+    """A view one element into its storage: the kernel falls to copies of
+    one element (float32) or 8 bytes (float64) and is still right."""
+    R, P = 300, 260
+    buf = torch.as_tensor(np.random.default_rng(8).standard_normal(R * P + 1), dtype=dtype).to(cuda)
+    A = buf[1:].view(R, P)
+    assert A.is_contiguous() and A.data_ptr() % 16 != 0
+    got, ref = syrk(A), syrk_plain(A)
+    torch.testing.assert_close(got, ref, atol=tol * float(ref.abs().max()), rtol=0)
+    assert torch.equal(got, got.mT)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("P", [5128, 5129, 5130, 5131])
+def test_syrk_plan_matches_the_library(cuda, dtype, P):
+    """`syrk_plan` is the geometry the library launches with."""
+    plan = syrk_plan(1280, P, dtype)
+    out = (ctypes.c_int * 7)()
+    assert _build.load("syrk").syrk_geometry(4 if dtype == torch.float32 else 8, P, out) == 0
+    assert list(out) == [plan.tile, plan.threads, plan.chunk, plan.stages, plan.copy_bytes,
+                         plan.smem_bytes, len(plan.tiles)]
 
 
 def test_syrk_rejects_what_the_kernel_does_not_take(cuda):

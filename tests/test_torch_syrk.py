@@ -45,7 +45,7 @@ def test_syrk_matches_jax(shape):
 def test_every_source_declares_its_entry_points():
     """`_build.load` binds each library by its own signature table."""
     assert set(_build.SOURCES) == {"latrd", "latrd_v4", "latrd_v3", "latrd_v2", "syrk"}
-    assert set(_build.SIGNATURES["syrk"]) == {"syrk_f32", "syrk_f64"}
+    assert set(_build.SIGNATURES["syrk"]) == {"syrk_f32", "syrk_f64", "syrk_geometry"}
     for name in _build.SOURCES:
         assert (_build.CSRC / f"{name}.cu").is_file()
         src = (_build.CSRC / f"{name}.cu").read_text()
