@@ -16,7 +16,13 @@ Phases, each printing one JSON line; any failed check exits non-zero:
              `eigh_stack_ts` through that kernel against `torch.linalg.eigh`;
              v1 also on a (17, 128) window at offset 64 (7 blocks a window
              of 9 or 10 rows, next to no work a column), the cost of its
-             2 nb grid barriers and phase latencies;
+             2 nb grid barriers and phase latencies; v3 (one cooperative
+             launch a panel, every sum in one fixed order) also at (4, 1152)
+             in float32 and at both shapes in float64, each bitwise over two
+             launches, against its plain version and timed (`by_shape`);
+             v4 and v3 also with `stream_bound_ms`, the time the trailing
+             triangle's tiles that stay off chip take to stream from HBM
+             every column;
              the syrk kernel against `syrk_plain`, bitwise over two
              launches and exactly symmetric, at the last-layer GGN shape
              (1280, 5130) and at (1280, 5131) (P odd: 4-byte copies) in
@@ -50,11 +56,15 @@ Phases, each printing one JSON line; any failed check exits non-zero:
              a second `KronLaplace` fit) against float64 `eigvalsh` and the
              `main` phase's marglik; every factor class n >= 512 of that fit
              through `eigh_stack_ts` with the v3 and then the v2 kernel
-             (their launches read here); and a float64 (2, 576) D&C on the
-             card against the same call on the CPU.
+             (their launches read here, every panel tallied by (K, m,
+             off)); and a float64 (2, 576) D&C on the card against the same
+             call on the CPU;
+   route_windows - each panel of the v3 and v2 runs, timed as in
+             `windows`: the v3 and v2 rows gain `ms_by_window` and
+             `route_ms`.
 
-Then the kernel summary line (with `main_path_ms` where measured), the
-`nvidia-smi` line, and last
+Then the kernel summary line (with `main_path_ms`, `route_ms` and
+`stream_bound_ms` where measured), the `nvidia-smi` line, and last
 `{"ok": true, "device": {...}}`. Without a CUDA device, or outside the
 repository checkout, it exits non-zero and prints no result.
 """
@@ -145,13 +155,30 @@ def sym_stack(K: int, n: int, gen, device, dtype):
     return (A + A.mT) / 2
 
 
-def panel_bound_ms(K: int, m: int, nb: int, itemsize: int, flops_peak: float):
+def panel_bound_ms(K: int, m: int, nb: int, itemsize: int, flops_peak: float, off: int = 0):
     """Least time for one panel: the window read once and U/W written once,
     against the trailing matvecs and the U/W products it computes."""
     nbytes = K * m * m * itemsize + K * (2 * nb * m + 3 * nb) * itemsize
-    flops = sum(2 * K * (m - c - 1) ** 2 + 12 * K * c * m for c in range(nb))
+    flops = sum(2 * K * (m - off - j - 1) ** 2 + 12 * K * j * m for j in range(nb))
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flops_peak
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def stream_bound_ms(K: int, m: int, off: int, nb: int, itemsize: int, n_res: int, table,
+                    n_cta: int) -> float:
+    """Least time for one panel of a persistent symmetric-half kernel (v4,
+    v3) whose window does not fit on the chip: each column c reads the
+    trailing lower-triangle 64x64 tiles (tile column >= (c+1)//64) from
+    device memory at its rate, less the `n_res` tiles each block of the
+    plan's schedule `table` keeps in shared memory (a full window)."""
+    import torch
+
+    offsets, codes = table[: n_cta + 1].long(), table[n_cta + 1 :].long()
+    runs = offsets[1:] - offsets[:-1]
+    pos = torch.arange(codes.numel()) - torch.repeat_interleave(offsets[:-1], runs)
+    s, streamed = codes & 1023, pos >= n_res
+    tiles = sum(int((streamed & (s >= (off + j + 1) // 64)).sum()) for j in range(nb))
+    return 1e3 * tiles * 64 * 64 * itemsize / HBM_BYTES_PER_S
 
 
 def kernel_phase(name, module, driver, stage1, source, replaces, K, n, seed, device):
@@ -209,14 +236,19 @@ def kernel_phase(name, module, driver, stage1, source, replaces, K, n, seed, dev
     check(recon <= RECON_TOL, f"{name}: reconstruction {recon:.3e} > {RECON_TOL}")
     check(orth <= RECON_TOL, f"{name}: orthogonality {orth:.3e} > {RECON_TOL}")
 
+    extra = {}
     if name == "latrd_panel":  # the column chain's floor: barriers and phase latency
         small = sym_stack(17, 128, gen, device, torch.float32)
         floor_ms = cuda_ms(lambda: kernel(small, 64, 0, 128, nb), reps=20)
         extra = dict(chain_floor=dict(shape=[17, 128, 128], off=64, nb=nb, ms=floor_ms,
                                       grid_barriers=2 * nb,
                                       us_per_column=1e3 * floor_ms / nb))
-    else:
-        extra = {}
+    if name in ("latrd_panel_v4", "latrd_panel_v3"):  # the window streams every column
+        n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+        plan = mod.panel_plan(K, n, 0, nb, 4, n_sm)
+        extra["stream_bound_ms"] = stream_bound_ms(K, n, 0, nb, 4, plan[0], plan[2], n_sm)
+    if name == "latrd_panel_v3":  # bitwise and timed at the other shapes too
+        extra["by_shape"] = v3_shapes(kernel, plain, nb, gen, device)
     row = dict(name=name, route="cuda", source=source, replaces=replaces,
                shape=[K, n, n], nb=nb, dtype="float32", max_abs_err=max_abs_err,
                rel_err=errs, panel_tol=PANEL_TOL, repeat_bitwise=bitwise, ms=ms, plain_ms=plain_ms,
@@ -226,6 +258,34 @@ def kernel_phase(name, module, driver, stage1, source, replaces, K, n, seed, dev
                recon_rel_err=recon, orth_err=orth, **extra)
     emit(dict(phase="kernel", **row))
     return row
+
+
+# v3's further shapes: the v1 row's window, and float64 at both; two launches
+# must agree bit for bit at each (the float32 (3, 4608) panel is the row's)
+V3_SHAPES = [(4, 1152, "float32"), (3, 4608, "float64"), (4, 1152, "float64")]
+V3_F64_TOL = 1e-10  # float64 panel vs plain: only the summation order differs
+
+
+def v3_shapes(kernel, plain, nb, gen, device):
+    """The v3 panel at V3_SHAPES: bitwise over two launches, against its
+    plain version, timed."""
+    import torch
+
+    out = {}
+    for K, n, dt in V3_SHAPES:
+        A = sym_stack(K, n, gen, device, getattr(torch, dt))
+        got, again = kernel(A, 0, 0, n, nb), kernel(A, 0, 0, n, nb)
+        ref = plain(A, 0, 0, n, nb)
+        torch.cuda.synchronize()
+        rel = max(float((g - r).abs().max() / r.abs().max()) for g, r in zip(got, ref))
+        bitwise = all(bool(torch.equal(g, r)) for g, r in zip(got, again))
+        tol = PANEL_TOL if dt == "float32" else V3_F64_TOL
+        out[f"{K}x{n}_{dt}"] = dict(ms=cuda_ms(lambda: kernel(A, 0, 0, n, nb), reps=5),
+                                    rel_err=rel, tol=tol, repeat_bitwise=bitwise)
+        check(bitwise, f"latrd_panel_v3 {dt} ({K}, {n}): two launches on one window differ")
+        check(rel <= tol, f"latrd_panel_v3 {dt} ({K}, {n}): relative error {rel:.3e} > {tol}")
+        del A, got, again, ref
+    return out
 
 
 def syrk_bound_ms(R: int, P: int, itemsize: int, flops_peak: float):
@@ -362,27 +422,32 @@ def full_width(seed):
     return net, ArrayLoader(X, y, batch_size=128), X_test
 
 
-MAIN_PANELS = {"latrd_panel": "latrd", "latrd_panel_v4": "latrd_v4"}  # wrapper -> module
+# panel wrapper -> module: the main path's, and those of the eigensolvers
+# phase's v3 and v2 route
+MAIN_PANELS = {"latrd_panel": "latrd", "latrd_panel_v4": "latrd_v4"}
+ROUTE_PANELS = {"latrd_panel_v3": "latrd_v3", "latrd_panel_v2": "latrd_v2"}
 
 
 def panel_module(name):
     import importlib
 
-    return importlib.import_module(f"laplace_jax_torch.ops.{MAIN_PANELS[name]}")
+    return importlib.import_module(f"laplace_jax_torch.ops.{(MAIN_PANELS | ROUTE_PANELS)[name]}")
 
 
 class PanelTally:
-    """Within `with`, each main-path stage-1 driver (`tridiagonalize_latrd`,
-    `tridiagonalize_latrd_v4`) hands `tridiagonalize_windows` its panel
-    wrapped so that every panel it runs is tallied by (K, m, off, nb); the
-    panel wrappers and their launch counts are untouched."""
+    """Within `with`, each named panel's stage-1 driver (`tridiagonalize_latrd`,
+    `tridiagonalize_latrd_v4` for the main path, `tridiagonalize_latrd_v3`,
+    `tridiagonalize_latrd_v2` for the eigensolvers route) hands
+    `tridiagonalize_windows` its panel wrapped so that every panel it runs is
+    tallied by (K, m, off, nb); the panel wrappers and their launch counts
+    are untouched."""
 
-    def __init__(self):
-        self.counts = {name: {} for name in MAIN_PANELS}
+    def __init__(self, names=MAIN_PANELS):
+        self.counts = {name: {} for name in names}
         self.inner = {}
 
     def __enter__(self):
-        for name in MAIN_PANELS:
+        for name in self.counts:
             mod, tally = panel_module(name), self.counts[name]
             inner = mod.tridiagonalize_windows
 
@@ -484,20 +549,22 @@ def main_path(seed, device):
     return res
 
 
-def window_phase(rows, panels, seed, device, smi):
-    """Each panel the main path launched, timed on a random window of its
-    (K, m) at its offset (5 repetitions by CUDA events, float32); the
-    kernel's row gains `ms_by_window` and `main_path_ms`, the sum of
-    launches x ms over the main path's panels."""
+def window_phase(rows, panels, seed, device, smi, total="main_path_ms"):
+    """Each panel a path launched, timed on a random window of its (K, m) at
+    its offset (5 repetitions by CUDA events, float32); the kernel's row
+    gains `ms_by_window` and `total`, the sum of launches x ms over the
+    path's panels (`main_path_ms` for the main path, `route_ms` for the
+    eigensolvers phase's v3 and v2 route)."""
     import torch
 
     gen = torch.Generator(device=device).manual_seed(seed)
-    out = dict(phase="windows", nvidia_smi=smi, reps=5, dtype="float32")
+    out = dict(phase="windows" if total == "main_path_ms" else "route_windows", nvidia_smi=smi,
+               reps=5, dtype="float32")
     for row in rows:
         if row["name"] not in panels:
             continue
         kernel = getattr(panel_module(row["name"]), row["name"])
-        by_window, total = {}, 0.0
+        by_window, path_ms = {}, 0.0
         for K, m in sorted({(K, m) for K, m, _, _ in panels[row["name"]]},
                            key=lambda w: -w[0] * w[1] ** 2):
             A = sym_stack(K, m, gen, device, torch.float32)
@@ -511,10 +578,10 @@ def window_phase(rows, panels, seed, device, smi):
                 if off == 0:
                     win["first_panel_ms"] = ms
             by_window[f"{K}x{m}"] = win
-            total += win["ms"]
+            path_ms += win["ms"]
             del A
-        row.update(ms_by_window=by_window, main_path_ms=total)
-        out[row["name"]] = dict(ms_by_window=by_window, main_path_ms=total)
+        row.update({"ms_by_window": by_window, total: path_ms})
+        out[row["name"]] = {"ms_by_window": by_window, total: path_ms}
     emit(out)
 
 
@@ -724,7 +791,9 @@ def eigensolvers_phase(seed, device, main):
                              / torch.linalg.matrix_norm(Sd)).max())
     res.update(dc_eig_rel_err=dc_err, dc_recon_rel_err=dc_recon)
 
-    # 2. every class n >= 512 through the v3 and the v2 stage-1 kernels
+    # 2. every class n >= 512 through the v3 and the v2 stage-1 kernels, each
+    # panel tallied by (K, m, off, nb)
+    tally = PanelTally(ROUTE_PANELS)
     for stage1, kernel in (("latrd_v3", latrd_panel_v3), ("latrd_v2", latrd_panel_v2)):
         latrd_panel.launches = latrd_panel_v4.launches = 0
         latrd_panel_v2.launches = latrd_panel_v3.launches = 0
@@ -732,7 +801,8 @@ def eigensolvers_phase(seed, device, main):
         for n, (_, st) in stacks.items():
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            lam, _ = eigh_stack_ts(st, stage1=stage1, device=device)
+            with tally:
+                lam, _ = eigh_stack_ts(st, stage1=stage1, device=device)
             torch.cuda.synchronize()
             secs += time.perf_counter() - t0
             ref = refs[n]
@@ -769,10 +839,13 @@ def eigensolvers_phase(seed, device, main):
             check(err <= EIG_TOL, f"{stage1} eigenvalues at n={n} off by {err:.3e} > {EIG_TOL}")
         check(res[f"{stage1}_launches"][kernel] > 0, f"{stage1} did not launch {kernel}")
     check(res["latrd_v2_launches"]["latrd_panel"] == 0, "the v2 run delegated to v1")
+    for stage1, kernel in (("latrd_v3", "latrd_panel_v3"), ("latrd_v2", "latrd_panel_v2")):
+        check(sum(tally.counts[kernel].values()) == res[f"{stage1}_launches"][kernel],
+              f"{kernel}: panels tallied {tally.counts[kernel]} against its launches")
     check(res["dc_f64_gpu_vs_cpu"] <= DC_F64_TOL,
           f"float64 dc on the card vs the CPU: {res['dc_f64_gpu_vs_cpu']:.3e} > {DC_F64_TOL}")
-    return {"latrd_panel_v3": res["latrd_v3_launches"]["latrd_panel_v3"],
-            "latrd_panel_v2": res["latrd_v2_launches"]["latrd_panel_v2"]}
+    return ({"latrd_panel_v3": res["latrd_v3_launches"]["latrd_panel_v3"],
+             "latrd_panel_v2": res["latrd_v2_launches"]["latrd_panel_v2"]}, tally.counts)
 
 
 def main() -> None:
@@ -821,13 +894,15 @@ def main() -> None:
     ll_launches, full_syrk_ms = last_layer_phase(args.seed, device)
     launches.update(ll_launches)
     next(r for r in rows if r["name"] == "syrk")["main_path_ms"] = full_syrk_ms
-    launches.update(eigensolvers_phase(args.seed, device, main))
+    route_launches, route_panels = eigensolvers_phase(args.seed, device, main)
+    launches.update(route_launches)
+    window_phase(rows, route_panels, args.seed, device, smi, total="route_ms")
 
     keys = ("name", "route", "source", "replaces", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
+    extra = ("main_path_ms", "route_ms", "stream_bound_ms")
     print(json.dumps({"kernels": [dict({k: r[k] for k in keys}, launches=launches[r["name"]],
-                                       **({"main_path_ms": r["main_path_ms"]}
-                                          if "main_path_ms" in r else {}))
+                                       **{k: r[k] for k in extra if k in r})
                                   for r in rows]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -4,13 +4,15 @@
 // One panel of blocked Householder tridiagonalization on a stack of K
 // symmetric windows Aw (K, m, m), row-major, for window-relative columns
 // c = off .. off+nb-1 (the contract of laplace_jax_torch/ops/tridiag.py).
-// In latrd_v2.cu and latrd_v3.cu each column runs four launches on the
-// caller's stream (`run_columns`); latrd_v4.cu runs the same steps as
-// phases of one persistent launch, from the device functions col_block,
-// house_from and w_block that the kernels below wrap, and latrd.cu as
-// phases of a persistent launch of its own. The persistent kernels share
-// the grid barrier, the cp.async helpers and `sm_count` at the end of this
-// file.
+// In latrd_v2.cu each column runs four launches on the caller's stream
+// (`run_columns`, with `k_matvec_rows` and `dots_block`); latrd_v4.cu runs
+// the same steps as phases of one persistent launch, from the device
+// functions col_block, house_from, reflector_entry and w_block that the
+// kernels below wrap; latrd.cu and latrd_v3.cu, from house_from and
+// reflector_entry, as phases of persistent launches of their own. The
+// persistent kernels (latrd.cu, latrd_v3.cu, latrd_v4.cu) share the grid
+// barrier, the cp.async helpers and `sm_count` at the end of this file;
+// latrd_v4.cu and latrd_v3.cu also share their tile ring (latrd_tiles.cuh).
 //
 //   1. k_col    grid (m/64, K): corrected column
 //                 col = Aw[c, :] - U^T W[:, c] - W^T U[:, c]
@@ -78,7 +80,7 @@ struct Panel {
   T* y;         // (K, m) trailing matvec
   T* st;        // (K, 2nb): U v in [0, nb), W v in [nb, 2nb)
   T* scal;      // (K, 4): tau
-  T* work;      // kernel-specific scratch (latrd_v2.cu, latrd_v3.cu)
+  T* work;      // kernel-specific scratch
   int K, m, nb, nrb;
   int q_base, n_real;
   int nv;       // valid rows/columns of the window
@@ -353,7 +355,7 @@ Panel<T> make_panel(const void* Aw, void* UW, void* det, void* col, void* part, 
 template <typename T>
 using MatvecLauncher = cudaError_t (*)(const Panel<T>&, int c, int j, cudaStream_t);
 
-// The whole panel as latrd_v3.cu runs it: nb columns of k_col, k_house,
+// The whole panel as latrd_v2.cu runs it: nb columns of k_col, k_house,
 // the kernel's matvec and k_w.
 template <typename T>
 cudaError_t run_columns(const Panel<T>& p, int off, cudaStream_t s, MatvecLauncher<T> matvec) {
@@ -373,7 +375,8 @@ cudaError_t run_columns(const Panel<T>& p, int off, cudaStream_t s, MatvecLaunch
   return cudaSuccess;
 }
 
-// -- the persistent (cooperative) panel kernels: latrd.cu, latrd_v4.cu ------
+// -- the persistent (cooperative) panel kernels: latrd.cu, latrd_v3.cu,
+// latrd_v4.cu ------------------------------------------------------------
 
 constexpr int kBarrierElems = 4;  // work[0, 4): the grid barrier's counter
 

@@ -54,7 +54,7 @@
 // registers, two barriers a column (each block forming w at row c+1
 // itself), TMA bulk copies.
 
-#include "latrd_common.cuh"
+#include "latrd_tiles.cuh"
 
 namespace {
 
@@ -67,14 +67,14 @@ using latrd::cp_async_wait;
 using latrd::grid_sync;
 using latrd::kBarrierElems;
 using latrd::sm_count;
-constexpr int kTile = 64;
-constexpr int kMaxRes = 16;  // resident tiles per block, at most
-
-// A slot: a 64x64 tile in rows padded by 16 bytes (a warp's 16-byte reads
-// of 8 consecutive rows then hit distinct banks), then col[S:S+64], col[R:R+64].
-template <typename T> constexpr int kLd = kTile + 16 / sizeof(T);
-template <typename T> constexpr int kSlot = kTile * kLd<T> + 2 * kTile;
-template <typename T> constexpr int kRing = sizeof(T) == 4 ? 3 : 2;  // streamed-tile slots
+using latrd::TileAt;
+using latrd::decode;
+using latrd::kLd;
+using latrd::kMaxRes;
+using latrd::kRing;
+using latrd::kSlot;
+using latrd::kTile;
+using latrd::load_slot;
 
 // `work`: the barrier counter, then each block's share of y.v per window (K, G)
 size_t work(int K, int, int) { return kBarrierElems + (size_t)K * sm_count(); }
@@ -89,35 +89,6 @@ size_t dynamic_smem(int K, int nb, int n_res, int n_cache, int n_units) {
   const size_t tail = ((size_t)K * (2 * nb + 7) * sizeof(T) + 15) / 16 * 16;
   return ((size_t)(n_res + kRing<T>) * kSlot<T> + ((size_t)n_cache * 2 * nb + n_units) * kRows) *
              sizeof(T) + tail;
-}
-
-struct TileAt {
-  int k, r, s;  // window, tile row, tile column
-};
-// panel_schedule's code: k << 20 | r << 10 | s
-__device__ __forceinline__ TileAt decode(int code) {
-  return {code >> 20, (code >> 10) & 1023, code & 1023};
-}
-
-// cp.async of tile t's elements (with_tile) and of col[S:S+64], col[R:R+64]
-// into a slot
-template <typename T>
-__device__ __forceinline__ void load_slot(const latrd::Panel<T>& p, TileAt t, T* slot,
-                                          bool with_tile) {
-  constexpr int n = latrd::Vec<T>::n, per_row = kTile / n;
-  const size_t mm = p.m;
-  const int R = t.r * kTile, S = t.s * kTile;
-  if (with_tile) {
-    const T* A = p.Aw + ((size_t)t.k * mm + R) * mm + S;
-    for (int e = threadIdx.x; e < kTile * per_row; e += kBlock) {
-      const int row = e / per_row, cv = (e % per_row) * n;
-      cp_async16(slot + row * kLd<T> + cv, A + row * mm + cv);
-    }
-  }
-  if (threadIdx.x < 2 * per_row) {
-    const int seg = threadIdx.x / per_row, cv = (threadIdx.x % per_row) * n;
-    cp_async16(slot + kTile * kLd<T> + seg * kTile + cv, p.col + t.k * mm + (seg ? R : S) + cv);
-  }
 }
 
 __device__ __forceinline__ void load8(const float* a, float (&x)[8]) {

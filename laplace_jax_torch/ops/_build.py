@@ -38,6 +38,9 @@ _PANEL_LIB = {"panel_f32": _PANEL, "panel_f64": _PANEL,
 _PANEL_V4 = (_I, [_P] * 9 + [_I] * 6 + [_P, _I, _I, _I, _P])
 _PANEL_V4_LIB = {"panel_f32": _PANEL_V4, "panel_f64": _PANEL_V4, "ring_slots": (_I, [_I]),
                  "work_elems": (_Z, [_I] * 3), "part_elems": (_Z, [_I] * 2)}
+# latrd_v3's panel takes the same arguments; smem_bytes(K, nb, n_res,
+# n_cache, n_units, itemsize) is its dynamic shared memory
+_PANEL_V3_LIB = dict(_PANEL_V4_LIB, smem_bytes=(_Z, [_I] * 6))
 # latrd's panel takes its block count and two caching switches before the
 # stream; smem_bytes(K, m, off, nb, n_cta, cache_window, cache_rows, itemsize)
 _PANEL_V1 = (_I, [_P] * 9 + [_I] * 9 + [_P])
@@ -51,7 +54,7 @@ _SYRK_GEOMETRY = (_I, [_I, _I, ctypes.POINTER(_I)])
 SIGNATURES = {
     "latrd": _PANEL_V1_LIB,
     "latrd_v4": _PANEL_V4_LIB,
-    "latrd_v3": _PANEL_LIB,
+    "latrd_v3": _PANEL_V3_LIB,
     "latrd_v2": _PANEL_LIB,
     "syrk": {"syrk_f32": _SYRK, "syrk_f64": _SYRK, "syrk_geometry": _SYRK_GEOMETRY},
 }

@@ -34,8 +34,8 @@ __all__ = ["latrd_panel_v4", "latrd_panel_v4_plain", "tridiagonalize_latrd_v4",
            "panel_schedule", "panel_plan"]
 
 TILE = 64            # the kernel's tile width (and rows of a row block)
-RING = {4: 3, 8: 2}  # its streamed-tile slots by item size (`kRing` in csrc/latrd_v4.cu)
-MAX_RES = 16         # resident tiles per block, at most (`kMaxRes`)
+RING = {4: 3, 8: 2}  # its streamed-tile slots by item size (`kRing` in csrc/latrd_tiles.cuh)
+MAX_RES = 16         # resident tiles per block, at most (`kMaxRes` there)
 SMEM_BYTES = 232448  # shared memory one block may use on the H100 (227 KB)
 STATIC_BYTES = 8192  # the kernel's static shared memory, rounded up
 

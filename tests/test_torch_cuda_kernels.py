@@ -112,20 +112,21 @@ def _assert_panel_close(got, ref, tol):
         torch.testing.assert_close(g, r, atol=tol * float(r.abs().max()), rtol=0)
 
 
-def _assert_v1_panel(got, A, off, q_base, n_real, tol):
-    """v1 against its plain version on the same window. Float64: within
-    `tol` of the plain panel. Float32: against the plain panel computed in
-    float64 on the same float32 input, within `tol` or within twice the
-    plain float32 panel's own error there, whichever is larger. At a
-    window's tail panel, where the trailing block shrinks to nothing inside
-    the panel, float32 itself is further than 2e-4 off float64, and two
-    float32 summation orders differ by as much (the four-launch kernel this
-    one replaced missed 2e-4 against the plain float32 panel there too)."""
-    ref = latrd_panel_plain(A, off, q_base, n_real, 64)
+def _assert_panel_vs_plain(got, plain, A, off, q_base, n_real, tol):
+    """A persistent panel (v1, v3) against its plain version on the same
+    window. Float64: within `tol` of the plain panel. Float32: against the
+    plain panel computed in float64 on the same float32 input, within `tol`
+    or within twice the plain float32 panel's own error there, whichever is
+    larger. At a window's tail panel, where the trailing block shrinks to
+    nothing inside the panel, float32 itself is further than 2e-4 off
+    float64, and two float32 summation orders differ by as much (the
+    four-launch kernel v1's replaced missed 2e-4 against the plain float32
+    panel there too)."""
+    ref = plain(A, off, q_base, n_real, 64)
     if A.dtype == torch.float64:
         _assert_panel_close(got, ref, tol)
         return
-    exact = latrd_panel_plain(A.double(), off, q_base, n_real, 64)
+    exact = plain(A.double(), off, q_base, n_real, 64)
     for g, r, x in zip(got, ref, exact):
         scale = float(x.abs().max())
         err_kernel = float((g.double() - x).abs().max()) / scale
@@ -176,7 +177,7 @@ def test_v1_panel_at_main_path_windows(cuda, K, m, off, dtype, tol):
     got = latrd_panel(A, off, 0, m, 64)
     torch.cuda.synchronize()
     assert latrd_panel.launches == launches + 1
-    _assert_v1_panel(got, A, off, 0, m, tol)
+    _assert_panel_vs_plain(got, latrd_panel_plain, A, off, 0, m, tol)
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10), (torch.float32, 2e-4)],
@@ -194,7 +195,7 @@ def test_v1_panel_streaming_its_rows(cuda, dtype, tol):
     for off in (0, 704):
         got = latrd_panel(A, off, 3, 763, 64)
         torch.cuda.synchronize()
-        _assert_v1_panel(got, A, off, 3, 763, tol)
+        _assert_panel_vs_plain(got, latrd_panel_plain, A, off, 3, 763, tol)
 
 
 def test_v1_repeats_bitwise(cuda):
@@ -268,6 +269,52 @@ def test_eigh_stack_ts_dispatches_to_kernel(cuda, n, kernel, stage1):
     assert float((lam.double() - ref).abs().max() / ref.abs().max()) < 1e-4
 
 
+# (K, m, off, n_valid): the kernel row's window (3, 4608) at its first panel
+# and at the last panel of its first class, the v1 row's (4, 1152) with two
+# padded rows, one window, the smallest window, and a padded window whose
+# trailing block has fewer tiles than the card has blocks
+V3_CASES = [(3, 4608, 0, 4608), (3, 4608, 1088, 4608), (4, 1152, 0, 1150), (1, 1152, 64, 1152),
+            (2, 128, 0, 128), (2, 640, 512, 600)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10), (torch.float32, 2e-4)],
+                         ids=["float64", "float32"])
+@pytest.mark.parametrize("K,m,off,n_valid", [pytest.param(*c, id="{}x{}-off{}-nv{}".format(*c))
+                                             for c in V3_CASES])
+def test_v3_panel_matches_plain_and_repeats_bitwise(cuda, K, m, off, n_valid, dtype, tol):
+    """The persistent v3 panel against its plain version, and two launches
+    on one window bit for bit: every sum has one order (no atomics)."""
+    A = _card_window(12, K, m, dtype, cuda)
+    A[:, n_valid:, :] = 0
+    A[:, :, n_valid:] = 0
+    launches = latrd_panel_v3.launches
+    first = latrd_panel_v3(A, off, 0, n_valid, 64)
+    second = latrd_panel_v3(A, off, 0, n_valid, 64)
+    torch.cuda.synchronize()
+    assert latrd_panel_v3.launches == launches + 2
+    for g, r in zip(first, second):
+        assert torch.equal(g, r)
+    _assert_panel_vs_plain(first, latrd_panel_v3_plain, A, off, 0, n_valid, tol)
+
+
+def test_v3_plan_matches_the_library(cuda):
+    """The first launch of each window checks ops/latrd_v3.panel_plan's
+    shared memory and ring against the library's own reckoning; the
+    kernel's static shared memory (from `-Xptxas -v`) is within the plan's
+    allowance for it."""
+    import re
+
+    from laplace_jax_torch.ops.latrd_v3 import STATIC_BYTES, _plans, _schedule_args
+
+    for K, m, off, dtype in ((3, 4608, 0, torch.float32), (3, 4608, 0, torch.float64),
+                             (40, 768, 0, torch.float64), (6, 512, 448, torch.float32)):
+        A = torch.zeros(K, m, m, device=cuda, dtype=dtype)
+        _schedule_args(A, off, 64)
+        assert (K, m, off, 64, dtype, A.device) in _plans
+    static = [int(n) for n in re.findall(r"(\d+) bytes smem", _build.build_log("latrd_v3"))]
+    assert static and max(static) <= STATIC_BYTES
+
+
 def test_v3_repeats_bitwise(cuda):
     """Two v3 launches on one float32 window give the same bits: its
     matvec sums every tile pair in one fixed order, with no atomics."""
@@ -282,13 +329,13 @@ def test_v3_repeats_bitwise(cuda):
 @pytest.mark.parametrize("lib_name", ["latrd", "latrd_v4", "latrd_v3", "latrd_v2"])
 def test_panel_writes_stay_inside_the_scratch_it_declares(cuda, lib_name):
     """Each panel library sizes its own `part` and `work` scratch
-    (`part_elems`, `work_elems`; v4's and v1's work holds the grid
-    barrier's counter and each block's partial sums): a guard placed past
-    each keeps its bits through a whole panel, and v4's schedule table is
-    left as it was."""
+    (`part_elems`, `work_elems`; v4's, v3's and v1's work holds the grid
+    barrier's counter and each block's partial sums, v3's also its slots):
+    a guard placed past each keeps its bits through a whole panel, and v4's
+    and v3's schedule tables are left as they were."""
     from laplace_jax_torch.ops import _build
     from laplace_jax_torch.ops.latrd import _plan_args, panel_buffers
-    from laplace_jax_torch.ops.latrd_v4 import _plans, _schedule_args
+    from laplace_jax_torch.ops import latrd_v3, latrd_v4
 
     K, m, nb, guard, mark = 3, 384, 64, 4096, 1234.5
     A = _window(7, K, m, m - 5, torch.float32).to(cuda)
@@ -297,18 +344,19 @@ def test_panel_writes_stay_inside_the_scratch_it_declares(cuda, lib_name):
     sizes = {key: buf[key].numel() for key in ("part", "work")}
     for key, n in sizes.items():
         buf[key] = torch.full((n + guard,), mark, device=cuda)
-    extra = {"latrd_v4": lambda: _schedule_args(A, 0, nb),
-             "latrd": lambda: _plan_args(A, 0, nb)}.get(lib_name, tuple)()
-    v4 = lib_name == "latrd_v4"
-    table = _plans[(K, m, 0, nb, A.dtype, A.device)][0].clone() if v4 else None
+    tiled = {"latrd_v4": latrd_v4, "latrd_v3": latrd_v3}.get(lib_name)
+    extra = tiled._schedule_args(A, 0, nb) if tiled else (
+        _plan_args(A, 0, nb) if lib_name == "latrd" else ())
+    plan_key = (K, m, 0, nb, A.dtype, A.device)
+    table = tiled._plans[plan_key][0].clone() if tiled else None
     stream = torch.cuda.current_stream(cuda).cuda_stream
     assert lib.panel_f32(A.data_ptr(), *(b.data_ptr() for b in buf.values()),
                          K, m, nb, 0, 0, m - 5, *extra, stream) == 0
     torch.cuda.synchronize()
     for key, n in sizes.items():
         assert bool((buf[key][n:] == mark).all()), f"{lib_name} wrote past {key}"
-    if v4:
-        assert torch.equal(_plans[(K, m, 0, nb, A.dtype, A.device)][0], table)
+    if tiled:
+        assert torch.equal(tiled._plans[plan_key][0], table)
 
 
 def test_eigh_stack_dc_on_card_matches_eigvalsh(cuda):
