@@ -11,8 +11,8 @@ Phases, each printing one JSON line; any failed check exits non-zero:
              registers and spills, and v1's shared memory at (4, 1152);
 3. kernels - each LATRD panel kernel at a real ResNet-18 factor class
              (v1 and v2 at (4, 1152), v4 and v3 at (3, 4608), float32)
-             against its plain PyTorch version on the same inputs, v3 and
-             v1 also against themselves (bitwise), and the whole
+             against its plain PyTorch version on the same inputs, v1, v3
+             and v2 also against themselves (bitwise), and the whole
              `eigh_stack_ts` through that kernel against `torch.linalg.eigh`;
              v1 also on a (17, 128) window at offset 64 (7 blocks a window
              of 9 or 10 rows, next to no work a column), the cost of its
@@ -22,7 +22,13 @@ Phases, each printing one JSON line; any failed check exits non-zero:
              launches, against its plain version and timed (`by_shape`);
              v4 and v3 also with `stream_bound_ms`, the time the trailing
              triangle's tiles that stay off chip take to stream from HBM
-             every column;
+             every column; v2 (one cooperative launch a panel on v1's
+             kernel, row corrections grouped by 8 columns, every sum in one
+             fixed order) also at (3, 4608) in float32 and at both shapes in
+             float64, bitwise, against its plain version and timed
+             (`by_shape`, `ms_3x4608`), with `stream_bound_ms` at (3, 4608):
+             the time the full rows that stay off chip take to stream from
+             HBM every column;
              the syrk kernel against `syrk_plain`, bitwise over two
              launches and exactly symmetric, at the last-layer GGN shape
              (1280, 5130) and at (1280, 5131) (P odd: 4-byte copies) in
@@ -57,14 +63,15 @@ Phases, each printing one JSON line; any failed check exits non-zero:
              `main` phase's marglik; every factor class n >= 512 of that fit
              through `eigh_stack_ts` with the v3 and then the v2 kernel
              (their launches read here, every panel tallied by (K, m,
-             off)); and a float64 (2, 576) D&C on the card against the same
-             call on the CPU;
+             off); no v2 panel may go to v1); and a float64 (2, 576) D&C on
+             the card against the same call on the CPU;
    route_windows - each panel of the v3 and v2 runs, timed as in
-             `windows`: the v3 and v2 rows gain `ms_by_window` and
-             `route_ms`.
+             `windows` (each a persistent launch, v2's windows of the 2304
+             and 4608 classes streaming most of their rows): the v3 and v2
+             rows gain `ms_by_window` and `route_ms`.
 
-Then the kernel summary line (with `main_path_ms`, `route_ms` and
-`stream_bound_ms` where measured), the `nvidia-smi` line, and last
+Then the kernel summary line (with `main_path_ms`, `route_ms`,
+`stream_bound_ms` and v2's `ms_3x4608` where measured), the `nvidia-smi` line, and last
 `{"ok": true, "device": {...}}`. Without a CUDA device, or outside the
 repository checkout, it exits non-zero and prints no result.
 """
@@ -114,7 +121,8 @@ KERNELS = [  # (name, module, stage-1 driver and name, source, TPU kernel replac
     ("latrd_panel_v2", "latrd_v2", "tridiagonalize_latrd_v2", "latrd_v2",
      "laplace_jax_torch/csrc/latrd_v2.cu", "laplace_jax/ops/latrd_pallas_v2.py:262", 4, 1152),
 ]
-BITWISE = {"latrd_panel_v3", "latrd_panel"}  # kernels whose two launches agree bit for bit
+# kernels whose two launches agree bit for bit
+BITWISE = {"latrd_panel_v3", "latrd_panel", "latrd_panel_v2"}
 MAIN_LAUNCHES = {"latrd_panel": 35, "latrd_panel_v4": 108}  # panels of one all-weights fit
 
 
@@ -179,6 +187,34 @@ def stream_bound_ms(K: int, m: int, off: int, nb: int, itemsize: int, n_res: int
     s, streamed = codes & 1023, pos >= n_res
     tiles = sum(int((streamed & (s >= (off + j + 1) // 64)).sum()) for j in range(nb))
     return 1e3 * tiles * 64 * 64 * itemsize / HBM_BYTES_PER_S
+
+
+def row_stream_bound_ms(K: int, m: int, off: int, nb: int, itemsize: int, plan) -> float:
+    """Least time for one panel of the persistent full-row kernel (v2) whose
+    window does not fit on the chip: each column c reads, from device memory
+    at its rate, the columns from vec_floor(c + 1) on of every live row
+    c < i < m that the plan (`ops/latrd_v2.panel_plan`) does not keep in
+    shared memory: all but the first `n_res` rows of each block's run (the
+    runs of `Rows` in csrc/latrd_panel.cuh)."""
+    import bisect
+
+    L, G, vec = m - off, plan.n_cta, 16 // itemsize
+    gk = G // K if K <= G else 0
+    base, extra = divmod(L if gk else K * L, gk or G)
+
+    def start(b):
+        t = b % gk if gk else b
+        return (b // gk * L if gk else 0) + t * base + min(t, extra)
+
+    streamed = [[] for _ in range(K)]  # window rows i that stream, by window
+    for b in range(G):
+        for g in range(start(b) + plan.n_res, start(b + 1)):
+            streamed[g // L].append(off + g % L)
+    elems = 0
+    for c in range(off, off + nb):
+        rows = sum(len(s) - bisect.bisect_right(s, c) for s in streamed)
+        elems += rows * (m - (c + 1) // vec * vec)
+    return 1e3 * elems * itemsize / HBM_BYTES_PER_S
 
 
 def kernel_phase(name, module, driver, stage1, source, replaces, K, n, seed, device):
@@ -248,7 +284,15 @@ def kernel_phase(name, module, driver, stage1, source, replaces, K, n, seed, dev
         plan = mod.panel_plan(K, n, 0, nb, 4, n_sm)
         extra["stream_bound_ms"] = stream_bound_ms(K, n, 0, nb, 4, plan[0], plan[2], n_sm)
     if name == "latrd_panel_v3":  # bitwise and timed at the other shapes too
-        extra["by_shape"] = v3_shapes(kernel, plain, nb, gen, device)
+        extra["by_shape"] = more_shapes(name, kernel, plain, V3_SHAPES, nb, gen, device)
+    if name == "latrd_panel_v2":  # the 4608 class's window, which streams, and float64
+        n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+        extra["by_shape"] = more_shapes(name, kernel, plain, V2_SHAPES, nb, gen, device)
+        big = extra["by_shape"]["3x4608_float32"]
+        plan = mod.panel_plan(3, 4608, 0, nb, 4, n_sm)
+        big.update(n_res=plan.n_res, rows=plan.rows,
+                   stream_bound_ms=row_stream_bound_ms(3, 4608, 0, nb, 4, plan))
+        extra.update(ms_3x4608=big["ms"], stream_bound_ms=big["stream_bound_ms"])
     row = dict(name=name, route="cuda", source=source, replaces=replaces,
                shape=[K, n, n], nb=nb, dtype="float32", max_abs_err=max_abs_err,
                rel_err=errs, panel_tol=PANEL_TOL, repeat_bitwise=bitwise, ms=ms, plain_ms=plain_ms,
@@ -263,27 +307,29 @@ def kernel_phase(name, module, driver, stage1, source, replaces, K, n, seed, dev
 # v3's further shapes: the v1 row's window, and float64 at both; two launches
 # must agree bit for bit at each (the float32 (3, 4608) panel is the row's)
 V3_SHAPES = [(4, 1152, "float32"), (3, 4608, "float64"), (4, 1152, "float64")]
-V3_F64_TOL = 1e-10  # float64 panel vs plain: only the summation order differs
+# v2's: the v3 row's window, which streams, and float64 at both
+V2_SHAPES = [(3, 4608, "float32"), (4, 1152, "float64"), (3, 4608, "float64")]
+F64_TOL = 1e-10  # float64 panel vs plain: only the summation order differs
 
 
-def v3_shapes(kernel, plain, nb, gen, device):
-    """The v3 panel at V3_SHAPES: bitwise over two launches, against its
-    plain version, timed."""
+def more_shapes(name, kernel, plain, shapes, nb, gen, device):
+    """A persistent panel at further (K, n, dtype) shapes: bitwise over two
+    launches, against its plain version, timed."""
     import torch
 
     out = {}
-    for K, n, dt in V3_SHAPES:
+    for K, n, dt in shapes:
         A = sym_stack(K, n, gen, device, getattr(torch, dt))
         got, again = kernel(A, 0, 0, n, nb), kernel(A, 0, 0, n, nb)
         ref = plain(A, 0, 0, n, nb)
         torch.cuda.synchronize()
         rel = max(float((g - r).abs().max() / r.abs().max()) for g, r in zip(got, ref))
         bitwise = all(bool(torch.equal(g, r)) for g, r in zip(got, again))
-        tol = PANEL_TOL if dt == "float32" else V3_F64_TOL
+        tol = PANEL_TOL if dt == "float32" else F64_TOL
         out[f"{K}x{n}_{dt}"] = dict(ms=cuda_ms(lambda: kernel(A, 0, 0, n, nb), reps=5),
                                     rel_err=rel, tol=tol, repeat_bitwise=bitwise)
-        check(bitwise, f"latrd_panel_v3 {dt} ({K}, {n}): two launches on one window differ")
-        check(rel <= tol, f"latrd_panel_v3 {dt} ({K}, {n}): relative error {rel:.3e} > {tol}")
+        check(bitwise, f"{name} {dt} ({K}, {n}): two launches on one window differ")
+        check(rel <= tol, f"{name} {dt} ({K}, {n}): relative error {rel:.3e} > {tol}")
         del A, got, again, ref
     return out
 
@@ -872,6 +918,7 @@ def main() -> None:
 
     from laplace_jax_torch.ops import _build
     from laplace_jax_torch.ops.latrd import panel_plan
+    from laplace_jax_torch.ops.latrd_v2 import panel_plan as panel_plan_v2
 
     build_s = _build.build_all()
     ptxas = {n: [ln.strip() for ln in _build.build_log(n).splitlines()
@@ -881,6 +928,10 @@ def main() -> None:
     emit(dict(phase="build", kernel="latrd_panel", ptxas=ptxas["latrd"],
               plan_at_4x1152={dt: panel_plan(4, 1152, 0, 64, size, n_sm)._asdict()
                               for dt, size in (("float32", 4), ("float64", 8))}))
+    emit(dict(phase="build", kernel="latrd_panel_v2", ptxas=ptxas["latrd_v2"],
+              plan={f"{K}x{n}_{dt}": panel_plan_v2(K, n, 0, 64, size, n_sm)._asdict()
+                    for K, n in ((4, 1152), (3, 4608)) for dt, size in (("float32", 4),
+                                                                      ("float64", 8))}))
 
     rows = [kernel_phase(*row, args.seed, device) for row in KERNELS]
     rows.append(syrk_phase(args.seed, device, _build.build_log("syrk")))
@@ -900,7 +951,7 @@ def main() -> None:
 
     keys = ("name", "route", "source", "replaces", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
-    extra = ("main_path_ms", "route_ms", "stream_bound_ms")
+    extra = ("main_path_ms", "route_ms", "stream_bound_ms", "ms_3x4608")
     print(json.dumps({"kernels": [dict({k: r[k] for k in keys}, launches=launches[r["name"]],
                                        **{k: r[k] for k in extra if k in r})
                                   for r in rows]}))

@@ -23,7 +23,7 @@
 // counter in `work`, zeroed by one memset per panel):
 //
 //   (a) the corrected column and its partial sums of squares on the block's
-//       rows (k_col's arithmetic in latrd_common.cuh; row c of the window
+//       rows (`col_block`'s arithmetic in latrd_common.cuh; row c of the window
 //       staged by cp.async during the last column), and each row block's
 //       share of U x and W x (x = the corrected column below c+1) into a slot
 //       of its own;
@@ -789,7 +789,7 @@ cudaError_t run(const latrd::Panel<T>& p, int off, const int* sched, int n_cta, 
 
 }  // namespace
 
-// The C interface: latrd_common.cuh's LATRD_EXPORTS, with the schedule
+// The C interface: the panel contract's arguments, then the schedule
 // table, its block count, the resident tiles per block and the cached row
 // blocks per block before the stream (as latrd_v4.cu); ring_slots(itemsize)
 // is kRing, smem_bytes(...) the launch's dynamic shared memory; `part` holds

@@ -15,13 +15,13 @@
 // `work`, zeroed by one memset per panel):
 //
 //   (a) corrected column and partial sums of squares on the block's rows
-//       (latrd_common.cuh's `col_block`, k_col's arithmetic), with column c
+//       (latrd_common.cuh's `col_block`), with column c
 //       of U and W and row c of the window staged in shared memory first;
-//   (b) every block forms every window's reflector itself (`house_from`,
-//       k_house's rules; block 0 writes d, e, tau), writes v on its rows,
+//   (b) every block forms every window's reflector itself (`house_from`;
+//       block 0 writes d, e, tau), writes v on its rows,
 //       adds its rows' share of U v and W v into p.st (atomics), and runs
 //       the trailing matvec y = A v over its tiles of the lower triangle;
-//   (c) `w_block` (k_w's arithmetic) on its rows, with y.v summed from the
+//   (c) `w_block` on its rows, with y.v summed from the
 //       blocks' shares in a fixed order and y, U v, W v staged first.
 //
 // Matvec. The 64x64 tiles (r, s), r >= s, of the panel's trailing block
@@ -298,7 +298,7 @@ k_panel(latrd::Panel<T> p, int off, const int* __restrict__ sched, int n_res, in
       for (int e = threadIdx.x; e < p.K * nb2; e += kBlock) p.st[e] = 0;
     __syncthreads();
     for (int u = cta, lu = 0; u < units; u += G, ++lu)
-      latrd::col_block(p, c, j, stage + lu * kRows, 0, u / p.nrb, u % p.nrb, rows_of(u, lu), rs,
+      latrd::col_block(p, c, j, stage + lu * kRows, u / p.nrb, u % p.nrb, rows_of(u, lu), rs,
                        vec + u / p.nrb * nb2, 1, red, sh);
     grid_sync(bar, target);
 
@@ -428,7 +428,7 @@ cudaError_t run(const latrd::Panel<T>& p, int off, const int* sched, int n_cta, 
 
 }  // namespace
 
-// The C interface: latrd_common.cuh's LATRD_EXPORTS, with the schedule
+// The C interface: the panel contract's arguments, then the schedule
 // table, its block count, the resident tiles per block and the cached row
 // blocks per block before the stream; ring_slots(itemsize) is kRing.
 #define LATRD_V4_PANEL(NAME, T)                                                            \

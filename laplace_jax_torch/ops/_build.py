@@ -26,36 +26,34 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD = Path(__file__).resolve().parents[2] / "build"
 
 _P, _I, _Z = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
-# Aw, UW, det, col, part, y, st, scal, work, K, m, nb, off, q_base, n_real, stream
-_PANEL = (_I, [_P] * 9 + [_I] * 6 + [_P])
-# a panel library: the two panels and its scratch sizes in elements,
-# work_elems(K, m, nb) and part_elems(K, m)
-_PANEL_LIB = {"panel_f32": _PANEL, "panel_f64": _PANEL,
-              "work_elems": (_Z, [_I] * 3), "part_elems": (_Z, [_I] * 2)}
-# latrd_v4's panel takes its tile schedule (device pointer), the number of
-# blocks, the resident tiles and the cached row blocks per block before the
-# stream
+# A panel library exports the two panels and its scratch sizes in elements,
+# work_elems(K, m, nb) and part_elems(K, m). A panel takes Aw, UW, det, col,
+# part, y, st, scal, work, K, m, nb, off, q_base, n_real, then its plan's
+# arguments, then the stream. latrd_v4's plan arguments are its tile
+# schedule (device pointer), the number of blocks, the resident tiles and
+# the cached row blocks per block
 _PANEL_V4 = (_I, [_P] * 9 + [_I] * 6 + [_P, _I, _I, _I, _P])
 _PANEL_V4_LIB = {"panel_f32": _PANEL_V4, "panel_f64": _PANEL_V4, "ring_slots": (_I, [_I]),
                  "work_elems": (_Z, [_I] * 3), "part_elems": (_Z, [_I] * 2)}
 # latrd_v3's panel takes the same arguments; smem_bytes(K, nb, n_res,
 # n_cache, n_units, itemsize) is its dynamic shared memory
 _PANEL_V3_LIB = dict(_PANEL_V4_LIB, smem_bytes=(_Z, [_I] * 6))
-# latrd's panel takes its block count and two caching switches before the
-# stream; smem_bytes(K, m, off, nb, n_cta, cache_window, cache_rows, itemsize)
-_PANEL_V1 = (_I, [_P] * 9 + [_I] * 9 + [_P])
-_PANEL_V1_LIB = {"panel_f32": _PANEL_V1, "panel_f64": _PANEL_V1, "smem_bytes": (_Z, [_I] * 8),
-                 "work_elems": (_Z, [_I] * 3), "part_elems": (_Z, [_I] * 2)}
+# the row-run panels (latrd, latrd_v2) take their block count and two plan
+# arguments before the stream; smem_bytes(K, m, off, nb, n_cta, a, b, itemsize)
+_PANEL_ROWS = (_I, [_P] * 9 + [_I] * 9 + [_P])
+_PANEL_ROWS_LIB = {"panel_f32": _PANEL_ROWS, "panel_f64": _PANEL_ROWS,
+                   "smem_bytes": (_Z, [_I] * 8),
+                   "work_elems": (_Z, [_I] * 3), "part_elems": (_Z, [_I] * 2)}
 _SYRK = (_I, [_P, _P, _I, _I, _P])  # A, H, R, P, stream
 # syrk_geometry(itemsize, P, int out[7]): the launch geometry (ops/syrk.syrk_plan)
 _SYRK_GEOMETRY = (_I, [_I, _I, ctypes.POINTER(_I)])
 # each source's C entry points, as (result type, argument types); every
 # library also exports `error_string(int)`
 SIGNATURES = {
-    "latrd": _PANEL_V1_LIB,
+    "latrd": _PANEL_ROWS_LIB,
     "latrd_v4": _PANEL_V4_LIB,
     "latrd_v3": _PANEL_V3_LIB,
-    "latrd_v2": _PANEL_LIB,
+    "latrd_v2": _PANEL_ROWS_LIB,
     "syrk": {"syrk_f32": _SYRK, "syrk_f64": _SYRK, "syrk_geometry": _SYRK_GEOMETRY},
 }
 SOURCES = tuple(SIGNATURES)

@@ -29,7 +29,8 @@ from laplace_jax_torch.ops.tridiag import (
     tridiagonalize_windows,
 )
 
-__all__ = ["latrd_panel", "latrd_panel_plain", "tridiagonalize_latrd", "panel_plan"]
+__all__ = ["latrd_panel", "latrd_panel_plain", "tridiagonalize_latrd", "panel_plan",
+           "block_count"]
 
 SMEM_BYTES = 232448  # shared memory one block may use on the H100 (227 KB)
 STATIC_BYTES = 1024  # the kernel's static shared memory (none), with room to spare
@@ -52,24 +53,35 @@ class PanelPlan(NamedTuple):
 
 def _rows_and_windows(K: int, L: int, n_cta: int) -> tuple:
     """(R, NW): the rows a block owns at most and the windows it touches at
-    most (`layout` in csrc/latrd.cu). The live rows (window-relative rows >=
-    off, L = m - off a window) are cut as `Rows` there cuts them: with K <=
-    n_cta (a multiple of K) each window's rows into n_cta / K runs of its
-    own, else all K L rows into n_cta runs; runs differ by at most a row."""
+    most (`layout` in csrc/latrd_panel.cuh). The live rows (window-relative
+    rows >= off, L = m - off a window) are cut as `Rows` there cuts them:
+    with K <= n_cta (a multiple of K) each window's rows into n_cta / K runs
+    of its own, else all K L rows into n_cta runs; runs differ by at most a
+    row."""
     if K <= n_cta:
         return _cdiv(L, n_cta // K), 1
     R = _cdiv(K * L, n_cta)
     return R, min(K, (R + L - 2) // L + 1)
 
 
+def block_count(K: int, L: int, n_sm: int) -> int:
+    """The blocks of a row-run panel launch (v1, v2) on a card with `n_sm`
+    SMs, for K windows of L live rows: with K <= n_sm, each window takes
+    min(n_sm // K, L / MIN_ROWS) blocks of its own; else min(n_sm, K L /
+    MIN_ROWS) blocks share the K L rows."""
+    if K <= n_sm:
+        return K * min(n_sm // K, _cdiv(L, MIN_ROWS))
+    return min(n_sm, _cdiv(K * L, MIN_ROWS))
+
+
 def smem_bytes(K: int, m: int, off: int, nb: int, n_cta: int, cache_window: bool,
                cache_rows: bool, itemsize: int) -> int:
-    """The kernel's dynamic shared memory (`layout` in csrc/latrd.cu): the
-    window rows from column cb = vec_floor(off + 1) on (R x LW), the staged
-    column of each window a block touches (NW x LW), its rows of U and W
-    (2nb x R) and of the panel's window rows (nb x R), its rows' corrected
-    column and y (2 x R), and per window U[:, c], W[:, c] (2nb), U v, W v,
-    y.v (2nb + 1) and 4 scalars."""
+    """The kernel's dynamic shared memory (`layout` in csrc/latrd_panel.cuh,
+    NG = 1): the window rows from column cb = vec_floor(off + 1) on (R x
+    LW), the staged column of each window a block touches (NW x LW), its
+    rows of U and W (2nb x R) and of the panel's window rows (nb x R), its
+    rows' corrected column and y (2 x R), and per window U[:, c], W[:, c]
+    (2nb), U v, W v, y.v (2nb + 1) and 4 scalars."""
     R, NW = _rows_and_windows(K, m - off, n_cta)
     vec = 16 // itemsize
     LW = m - (off + 1) // vec * vec
@@ -79,18 +91,13 @@ def smem_bytes(K: int, m: int, off: int, nb: int, n_cta: int, cache_window: bool
 
 
 def panel_plan(K: int, m: int, off: int, nb: int, itemsize: int, n_sm: int) -> PanelPlan:
-    """The launch of one panel on a card with `n_sm` SMs. With K <= n_sm,
-    each window takes min(n_sm // K, L / MIN_ROWS) blocks of its own (L =
-    m - off live rows); else min(n_sm, K L / MIN_ROWS) blocks share the K L
-    rows. Each block keeps its window rows and its rows of U and W in shared
-    memory when they fit, else only its rows of U and W, else neither (it
-    then reads them from L2). Raises for a window whose per-window vectors
-    alone do not fit."""
+    """The launch of one panel on a card with `n_sm` SMs: `block_count`
+    blocks over the L = m - off live rows of each window. Each block keeps
+    its window rows and its rows of U and W in shared memory when they fit,
+    else only its rows of U and W, else neither (it then reads them from
+    L2). Raises for a window whose per-window vectors alone do not fit."""
     L = m - off
-    if K <= n_sm:
-        n_cta = K * min(n_sm // K, _cdiv(L, MIN_ROWS))
-    else:
-        n_cta = min(n_sm, _cdiv(K * L, MIN_ROWS))
+    n_cta = block_count(K, L, n_sm)
     rows = _rows_and_windows(K, L, n_cta)[0]
     for cache_window, cache_rows in ((True, True), (False, True), (False, False)):
         smem = smem_bytes(K, m, off, nb, n_cta, cache_window, cache_rows, itemsize)

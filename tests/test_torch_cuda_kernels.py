@@ -23,7 +23,12 @@ dtypes) and on windows with fewer live tiles than the card has SMs. The v1
 panel is one cooperative launch per panel too (`ops/latrd.panel_plan`),
 held against its plain version at every main-path window, first and last
 panel, both dtypes, on windows whose rows it streams, and bitwise against
-itself (no atomics, like v3).
+itself (no atomics, like v3). The v2 panel is v1's kernel with its row
+corrections grouped by 8 columns (`ops/latrd_v2.panel_plan`): held against
+its plain version and bitwise against itself at the (4, 1152) window, which
+fits on the chip in float32, at the (3, 4608) window, whose rows mostly
+stream through its ring, at off > 0, at K = 1, at m = 128 and with padded
+rows, in both dtypes, and on windows whose blocks keep no rows of U and W.
 """
 
 import ctypes
@@ -326,16 +331,78 @@ def test_v3_repeats_bitwise(cuda):
         assert torch.equal(g, r)
 
 
+# (K, m, off, n_valid): the v2 row's window (4, 1152), resident in float32,
+# streaming in float64; the 4608 class's first window at its first panel and
+# at the last panel of its class, both streaming; one window at off > 0; the
+# smallest window; padded windows, one whose group of 8 rows c8 .. c8+7
+# spans blocks and the padding
+V2_CASES = [(4, 1152, 0, 1152), (3, 4608, 0, 4608), (3, 4608, 1088, 4608), (1, 1152, 64, 1152),
+            (2, 128, 0, 128), (4, 1152, 0, 1150), (2, 640, 512, 600)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10), (torch.float32, 2e-4)],
+                         ids=["float64", "float32"])
+@pytest.mark.parametrize("K,m,off,n_valid", [pytest.param(*c, id="{}x{}-off{}-nv{}".format(*c))
+                                             for c in V2_CASES])
+def test_v2_panel_matches_plain_and_repeats_bitwise(cuda, K, m, off, n_valid, dtype, tol):
+    """The persistent v2 panel against its plain version, and two launches
+    on one window bit for bit: every sum has one order (no atomics)."""
+    A = _card_window(13, K, m, dtype, cuda)
+    A[:, n_valid:, :] = 0
+    A[:, :, n_valid:] = 0
+    launches = latrd_panel_v2.launches
+    first = latrd_panel_v2(A, off, 0, n_valid, 64)
+    second = latrd_panel_v2(A, off, 0, n_valid, 64)
+    torch.cuda.synchronize()
+    assert latrd_panel_v2.launches == launches + 2
+    for g, r in zip(first, second):
+        assert torch.equal(g, r)
+    _assert_panel_vs_plain(first, latrd_panel_v2_plain, A, off, 0, n_valid, tol)
+
+
+def test_v2_streams_where_its_rows_of_u_and_w_do_not_fit(cuda):
+    """Windows of 768 whose blocks keep no rows of U and W: 40 in float64
+    (3 blocks a window of 256 rows, 26 of them resident) and 150 in float32
+    (more windows than blocks: a block's 873 rows span windows, 45
+    resident); padded rows, first and last panel."""
+    from laplace_jax_torch.ops.latrd_v2 import panel_plan
+
+    n_cta = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for K, dtype, tol in ((40, torch.float64, 1e-10), (150, torch.float32, 2e-4)):
+        plan = panel_plan(K, 768, 0, 64, torch.tensor([], dtype=dtype).element_size(), n_cta)
+        assert plan.n_res < plan.rows and not plan.cache_rows
+        A = _window(14, K, 768, 760, dtype).to(cuda)
+        for off in (0, 704):
+            first = latrd_panel_v2(A, off, 3, 763, 64)
+            second = latrd_panel_v2(A, off, 3, 763, 64)
+            torch.cuda.synchronize()
+            for g, r in zip(first, second):
+                assert torch.equal(g, r)
+            _assert_panel_vs_plain(first, latrd_panel_v2_plain, A, off, 3, 763, tol)
+
+
+def test_v2_plan_matches_the_library(cuda):
+    """The first launch of each window checks ops/latrd_v2.panel_plan's
+    shared memory against the library's own reckoning."""
+    from laplace_jax_torch.ops.latrd_v2 import _plan_args, _plans
+
+    for K, m, off, dtype in ((3, 4608, 0, torch.float32), (3, 4608, 0, torch.float64),
+                             (4, 1152, 0, torch.float32), (4, 2560, 640, torch.float64),
+                             (40, 768, 0, torch.float64), (6, 128, 64, torch.float32)):
+        A = torch.zeros(K, m, m, device=cuda, dtype=dtype)
+        _plan_args(A, off, 64)
+        assert (K, m, off, 64, dtype, A.device) in _plans
+
+
 @pytest.mark.parametrize("lib_name", ["latrd", "latrd_v4", "latrd_v3", "latrd_v2"])
 def test_panel_writes_stay_inside_the_scratch_it_declares(cuda, lib_name):
     """Each panel library sizes its own `part` and `work` scratch
-    (`part_elems`, `work_elems`; v4's, v3's and v1's work holds the grid
-    barrier's counter and each block's partial sums, v3's also its slots):
+    (`part_elems`, `work_elems`; v4's, v3's, v1's and v2's work holds the
+    grid barrier's counter and each block's partial sums, v3's also its slots):
     a guard placed past each keeps its bits through a whole panel, and v4's
     and v3's schedule tables are left as they were."""
-    from laplace_jax_torch.ops import _build
-    from laplace_jax_torch.ops.latrd import _plan_args, panel_buffers
-    from laplace_jax_torch.ops import latrd_v3, latrd_v4
+    from laplace_jax_torch.ops import _build, latrd, latrd_v2, latrd_v3, latrd_v4
+    from laplace_jax_torch.ops.latrd import panel_buffers
 
     K, m, nb, guard, mark = 3, 384, 64, 4096, 1234.5
     A = _window(7, K, m, m - 5, torch.float32).to(cuda)
@@ -346,7 +413,7 @@ def test_panel_writes_stay_inside_the_scratch_it_declares(cuda, lib_name):
         buf[key] = torch.full((n + guard,), mark, device=cuda)
     tiled = {"latrd_v4": latrd_v4, "latrd_v3": latrd_v3}.get(lib_name)
     extra = tiled._schedule_args(A, 0, nb) if tiled else (
-        _plan_args(A, 0, nb) if lib_name == "latrd" else ())
+        {"latrd": latrd, "latrd_v2": latrd_v2}[lib_name]._plan_args(A, 0, nb))
     plan_key = (K, m, 0, nb, A.dtype, A.device)
     table = tiled._plans[plan_key][0].clone() if tiled else None
     stream = torch.cuda.current_stream(cuda).cuda_stream

@@ -1,8 +1,9 @@
 """The launch plan of the persistent v1 panel kernel (`ops/latrd.py`
 `panel_plan`, `smem_bytes`): pure index arithmetic, checked on the CPU.
 
-The kernel (`csrc/latrd.cu`) gives each block the run of live rows that
-`Rows` there describes (`row_starts` below is the same cut) and lays out
+The kernel (`csrc/latrd.cu`, `k_panel<T, 1>` of `csrc/latrd_panel.cuh`)
+gives each block the run of live rows that `Rows` there describes
+(`row_starts` below is the same cut) and lays out
 its shared memory as `smem_bytes` reckons it (the card checks the two agree
 on first use). So every live row
 must be owned by exactly one block, a block's rows lie in one window
@@ -30,7 +31,7 @@ H100_SMS = 132
 
 def row_starts(K, m, off, n_cta):
     """Where each block's run of live rows starts, then K L (`Rows` in
-    csrc/latrd.cu): live rows are window-relative rows >= off, numbered
+    csrc/latrd_panel.cuh): live rows are window-relative rows >= off, numbered
     k L + i - off with L = m - off; with K <= n_cta each window's L rows are
     cut into n_cta // K runs of its own, else all K L rows into n_cta runs;
     the first runs of a cut are one row longer."""

@@ -43,14 +43,18 @@ def test_syrk_matches_jax(shape):
 
 
 def test_every_source_declares_its_entry_points():
-    """`_build.load` binds each library by its own signature table."""
+    """`_build.load` binds each library by its own signature table; the
+    row-run panels (latrd, latrd_v2) declare theirs through the export
+    macro of `csrc/latrd_panel.cuh`."""
     assert set(_build.SOURCES) == {"latrd", "latrd_v4", "latrd_v3", "latrd_v2", "syrk"}
     assert set(_build.SIGNATURES["syrk"]) == {"syrk_f32", "syrk_f64", "syrk_geometry"}
+    header = (_build.CSRC / "latrd_panel.cuh").read_text()
+    macro = header[header.index("#define LATRD_ROWS_EXPORTS"):]
     for name in _build.SOURCES:
         assert (_build.CSRC / f"{name}.cu").is_file()
         src = (_build.CSRC / f"{name}.cu").read_text()
         for fn in _build.SIGNATURES[name]:
-            assert fn in src or "LATRD_EXPORTS" in src
+            assert fn in src or ("LATRD_ROWS_EXPORTS(" in src and f" {fn}(" in macro)
 
 
 def _spd(n, seed):
