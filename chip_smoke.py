@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (`laplace_jax_torch`) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed 0]
+    python3 chip_smoke.py [--seed 0] [--window-study SEEDS]
 
 Phases, each printing one JSON line; any failed check exits non-zero:
 
@@ -68,12 +68,53 @@ Phases, each printing one JSON line; any failed check exits non-zero:
    route_windows - each panel of the v3 and v2 runs, timed as in
              `windows` (each a persistent launch, v2's windows of the 2304
              and 4608 classes streaming most of their rows): the v3 and v2
-             rows gain `ms_by_window` and `route_ms`.
+             rows gain `ms_by_window` and `route_ms`;
+8. marglik_training - `bench.py` config 3a at full size: BenchCNN (convs
+             32/64/64/128 with biases, `Dense_0` to 10), 1024 CIFAR-10-shaped
+             inputs, batch 256, 2 epochs, 10 hypersteps a round, Kron,
+             classification, float32: `epochs_per_sec`, the margliks, the
+             layerwise prior, the v1 launches (the (2, 576) class on each of
+             the 3 fits); every marglik finite, probit rows sum to 1, the
+             TF32 switches as before, the returned fit's eigenvalues against
+             float64 `eigvalsh`, and v1 on the windows (and data) of the
+             last fit: bitwise over two launches, its float32 and float64
+             outputs each within `ops.tridiag.panel_residual`'s tolerance,
+             and its error against the float64 plain panel beside the plain
+             float32 panel's (reported only: the tail windows are nearly
+             deflated, where two correct float32 panels can differ by more
+             than 1e-4, and even float64 ones); then the same run in float64
+             on the card (v1's launches counted again) and on the CPU,
+             margliks and losses within 1e-6 relative;
+9. regression - ResNet-18 (width 64, one output) on the main path's 512
+             inputs with float targets, batch 128, float32: an all-weights
+             `KronLaplace` fit (35 v1 and 108 v4 launches), 100 marglik
+             steps tuning a layerwise prior, the marglik's gradient in
+             `sigma_noise`, the GLM `(f_mu, f_var)` and `log_prob(la.mean)`
+             under the tuned prior; NN predictives (16 samples of
+             `KronLaplace.sample`) on 8 inputs under the tuned prior and
+             under one at the initialization's scale, each with its samples'
+             spread against the prior and every layer's largest output in
+             float32 and float64 for the same weights (a non-finite float32
+             predictive must come with float64 values beyond float32's
+             range); a FullLL fit (4 syrk launches) and a gridsearch on a
+             KronLL (Gaussian NLL on 128 validation targets drawn from the
+             predictive at the grid's middle, the default grid of 100; its
+             choice against the argmin of the scores taken outside it; and
+             one with the default MSE score, a grid value back), each timed.
+The `last_layer` phase also runs the bridge, bridge_norm and MC links on
+its KronLL (rows sum to 1).
 
 Then the kernel summary line (with `main_path_ms`, `route_ms`,
-`stream_bound_ms` and v2's `ms_3x4608` where measured), the `nvidia-smi` line, and last
+`stream_bound_ms` and v2's `ms_3x4608` where measured, and
+`launches_by_path`: each kernel's launches on the marglik_training and
+regression paths), the `nvidia-smi` line, and last
 `{"ok": true, "device": {...}}`. Without a CUDA device, or outside the
 repository checkout, it exits non-zero and prints no result.
+
+`--window-study SEEDS` runs, after the build, only `window_study`: the
+`marglik_training` path once a seed, v1 checked on each run's windows as
+in that phase, and the spread of every error over the seeds; it prints
+no result line.
 """
 
 from __future__ import annotations
@@ -91,6 +132,10 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 F64_FLOPS = 34e12  # H100 SXM float64 outside the tensor cores
 PANEL_TOL = 1e-4  # float32 panel: max |kernel - plain| / max |plain| per output
+# a panel's outputs against the contract's recurrences (ops.tridiag.panel_residual,
+# over max |Aw|): a correct float32 panel is within a few sqrt(m) eps of 0 on any
+# window, a fault of 1e-3 in one output is above 1e-4 (tests/test_torch_panel_residual.py)
+RESIDUAL_TOL = {"float32": 1e-5, "float64": 1e-12}
 STAGE1_TOL = 3e-5  # stage-1 spectrum: max |eig(T) - eig(A)| / max |eig(A)|
 # (the JAX package's oracle, laplace_jax/ops/latrd_pallas_v4.py:50-51)
 EIG_TOL = 1e-4  # whole float32 solver vs float64 eigvalsh, relative to the
@@ -486,21 +531,26 @@ class PanelTally:
     `tridiagonalize_latrd_v2` for the eigensolvers route) hands
     `tridiagonalize_windows` its panel wrapped so that every panel it runs is
     tallied by (K, m, off, nb); the panel wrappers and their launch counts
-    are untouched."""
+    are untouched. With `keep`, `inputs[name][key]` holds a copy of the
+    last call's arguments at each key (window, off, q_base, n_real, nb)."""
 
-    def __init__(self, names=MAIN_PANELS):
+    def __init__(self, names=MAIN_PANELS, keep=False):
         self.counts = {name: {} for name in names}
+        self.inputs = {name: {} for name in names}
+        self.keep = keep
         self.inner = {}
 
     def __enter__(self):
         for name in self.counts:
-            mod, tally = panel_module(name), self.counts[name]
+            mod, tally, kept = panel_module(name), self.counts[name], self.inputs[name]
             inner = mod.tridiagonalize_windows
 
-            def windows(A, nb, S, panel, inner=inner, tally=tally):
+            def windows(A, nb, S, panel, inner=inner, tally=tally, kept=kept):
                 def counted(Aw, off, q_base, n_real, nb):
                     key = (Aw.shape[0], Aw.shape[1], off, nb)
                     tally[key] = tally.get(key, 0) + 1
+                    if self.keep:
+                        kept[key] = (Aw.clone(), off, q_base, n_real, nb)
                     return panel(Aw, off, q_base, n_real, nb)
 
                 return inner(A, nb, S, counted)
@@ -519,6 +569,22 @@ def tf32_flags():
     import torch
 
     return [torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32]
+
+
+def kernel_eig_err(la) -> float:
+    """The largest relative error of a fitted `KronLaplace`'s eigenvalues
+    against float64 `torch.linalg.eigvalsh` of its factors, over the factor
+    classes n >= 512 (those the LATRD kernels decompose)."""
+    import torch
+
+    worst = 0.0
+    for gi, F in enumerate(la.H_facs.kfacs):
+        for fi, H in enumerate(F):
+            if H.shape[0] >= 512:
+                ref = torch.linalg.eigvalsh(H.double()).clamp(min=0)
+                got = la.H.eigenvalues[gi][fi].double()
+                worst = max(worst, float((got - ref).abs().max() / ref.abs().max()))
+    return worst
 
 
 def main_path(seed, device):
@@ -544,16 +610,7 @@ def main_path(seed, device):
     retries = matrix.SYMEIG_RETRIES - retries0
     lml = float(la.log_marginal_likelihood())
     sizes = sorted({int(H.shape[0]) for F in la.H_facs.kfacs for H in F})
-
-    # the kernels' factors against torch.linalg.eigh in float64, per class
-    worst = 0.0
-    for n in (s for s in sizes if s >= 512):
-        facs = [(gi, fi) for gi, F in enumerate(la.H_facs.kfacs)
-                for fi, H in enumerate(F) if H.shape[0] == n]
-        for gi, fi in facs:
-            ref = torch.linalg.eigvalsh(la.H_facs.kfacs[gi][fi].double()).clamp(min=0)
-            got = la.H.eigenvalues[gi][fi].double()
-            worst = max(worst, float((got - ref).abs().max() / ref.abs().max()))
+    worst = kernel_eig_err(la)
 
     t0 = time.perf_counter()
     la.optimize_prior_precision(method="marglik", n_steps=100)
@@ -709,6 +766,15 @@ def last_layer_phase(seed, device):
     kron_launches = fit(kron, "kron")
     res.update(kron_class=type(kron).__name__, n_params=kron.n_params,
                last_layer=list(kron.last_layer_path))
+    links = {}
+    for link in ("bridge", "bridge_norm", "mc"):
+        t0 = time.perf_counter()
+        p = kron(X_test[:8], link_approx=link, n_samples=100, generator=gen)
+        torch.cuda.synchronize()
+        links[link] = dict(s=time.perf_counter() - t0, shape=list(p.shape),
+                           finite=bool(torch.isfinite(p).all()),
+                           row_sum_err=float((p.sum(-1) - 1).abs().max()))
+    res["kron_links_8"] = links
 
     full = Laplace(net, "classification", "last_layer", "full", device=device)
     full_launches = fit(full, "full")
@@ -743,6 +809,9 @@ def last_layer_phase(seed, device):
     emit(res)
 
     check(isinstance(kron, KronLLLaplace), f"the default Laplace is a {type(kron).__name__}")
+    for link, r in links.items():
+        check(r["shape"] == [8, 10] and r["finite"] and r["row_sum_err"] <= 1e-5,
+              f"KronLL {link} predictive: {r}")
     check(isinstance(full, FullLLLaplace) and isinstance(diag, DiagLLLaplace),
           "Laplace() gave the wrong last-layer classes")
     check(kron.n_params == 5130 and tuple(kron.last_layer_path) == ("Dense_0",),
@@ -894,9 +963,495 @@ def eigensolvers_phase(seed, device, main):
              "latrd_panel_v2": res["latrd_v2_launches"]["latrd_panel_v2"]}, tally.counts)
 
 
+# bench.py config 3a: marglik_training on BenchCNN, N = 1024, batch 256, 2 epochs
+MT_N, MT_BATCH, MT_EPOCHS, MT_HYPERSTEPS = 1024, 256, 2, 10
+MT_F64_TOL = 1e-6  # float64 margliks and losses, card (v1 + stage 2) vs CPU (LAPACK)
+
+
+def bench_cnn(seed, dtype):
+    """`bench.py`'s BenchCNN (convs 32/64/64/128 with biases, flax 'SAME'
+    padding, `Dense_0` to 10) from the port's layers, with flax's
+    initializers drawn from `seed`."""
+    import torch
+    from torch import nn
+
+    from laplace_jax_torch.models.resnet import Conv, _trunc_normal, init_conv
+
+    class BenchCNN(nn.Module):
+        def __init__(self):
+            super().__init__()
+            c_in = 3
+            for i, (c, s) in enumerate(zip((32, 64, 64, 128), (1, 2, 1, 2))):
+                self.add_module(f"Conv_{i}", Conv(c_in, c, 3, s, use_bias=True))
+                c_in = c
+            self.Dense_0 = nn.Linear(c_in, 10)
+
+        def forward(self, x):
+            x = x.permute(0, 3, 1, 2)  # NHWC -> NCHW
+            for i in range(4):
+                x = torch.relu(getattr(self, f"Conv_{i}")(x))
+            return self.Dense_0(x.mean(dim=(2, 3)))
+
+    gen = torch.Generator().manual_seed(seed)
+    net = BenchCNN()
+    with torch.no_grad():
+        for i in range(4):
+            init_conv(getattr(net, f"Conv_{i}"), gen)
+        _trunc_normal(net.Dense_0.weight, math.sqrt(1.0 / 128), gen)
+        net.Dense_0.bias.zero_()
+    return net.to(dtype)
+
+
+def path_panels_vs_plain(kernel, plain, inputs):
+    """A panel kernel on the windows a path gave it
+    (`PanelTally(keep=True).inputs`): bitwise over two float32 launches,
+    and its float32 outputs, and its float64 outputs on the same window in
+    float64, within RESIDUAL_TOL of the contract's recurrences. Its error
+    against the float64 plain panel stands beside the plain float32
+    panel's, and beside the lower-half-matvec plain float32 panel's (two
+    correct float32 panels): on nearly deflated windows these scatter
+    beyond PANEL_TOL, so they are reported, not checked."""
+    import torch
+
+    from laplace_jax_torch.ops.tridiag import lower_half_matvec, panel_plain, panel_residual
+
+    def worst(outs, exact):
+        return max(float((o.double() - x).abs().max() / x.abs().max()) for o, x in zip(outs, exact))
+
+    out = {}
+    for (K, m, _, _), (Aw, off, q_base, n_real, nb) in inputs.items():
+        args = (off, q_base, n_real, nb)
+        got, again = kernel(Aw, *args), kernel(Aw, *args)
+        A64 = Aw.double()
+        got64 = kernel(A64, *args)
+        ref, exact = plain(Aw, *args), plain(A64, *args)
+        lower = panel_plain(Aw, *args, matvec=lower_half_matvec(Aw))
+        torch.cuda.synchronize()
+        key = f"{K}x{m}@{off}"
+        row = out[key] = dict(
+            residual=float(panel_residual(Aw, *args, *got).max()),
+            residual_f64=float(panel_residual(A64, *args, *got64).max()),
+            plain_residual=float(panel_residual(Aw, *args, *ref).max()),
+            rel_err=worst(got, ref), err_vs_f64=worst(got, exact), plain_err_vs_f64=worst(ref, exact),
+            lower_plain_err_vs_f64=worst(lower, exact),
+            repeat_bitwise=all(bool(torch.equal(g, r)) for g, r in zip(got, again)))
+        check(row["repeat_bitwise"], f"{kernel.__name__} {key}: two launches on one window differ")
+        check(row["residual"] <= RESIDUAL_TOL["float32"],
+              f"{kernel.__name__} {key}: float32 residual {row['residual']:.3e} > "
+              f"{RESIDUAL_TOL['float32']} (plain float32 {row['plain_residual']:.3e})")
+        check(row["residual_f64"] <= RESIDUAL_TOL["float64"],
+              f"{kernel.__name__} {key}: float64 residual {row['residual_f64']:.3e} > "
+              f"{RESIDUAL_TOL['float64']}")
+    return out
+
+
+def marglik_training_phase(seed, device, smi):
+    """`marglik_training` at `bench.py` config 3a's full size: BenchCNN, 1024
+    CIFAR-10-shaped inputs, batch 256, 2 epochs, 10 hypersteps a round,
+    Kron, classification, float32 on the card, with the v1 launches (the
+    (2, 576) class on each of the three fits) read from the run, and v1
+    checked on the last fit's windows (`path_panels_vs_plain`); then the
+    same run in float64 on the card and on the CPU."""
+    import numpy as np
+    import torch
+
+    from laplace_jax_torch import KronLaplace, marglik_training
+    from laplace_jax_torch.ops.latrd import latrd_panel, latrd_panel_plain
+    from laplace_jax_torch.ops.latrd_v4 import latrd_panel_v4
+    from laplace_jax_torch.utils.data import ArrayLoader
+
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((MT_N, 32, 32, 3)).astype(np.float32)
+    y = rng.integers(0, 10, MT_N)
+    kw = dict(likelihood="classification", hessian_structure="kron", n_epochs=MT_EPOCHS,
+              n_hypersteps=MT_HYPERSTEPS, marglik_frequency=1)
+    t_start = time.perf_counter()
+    net = bench_cnn(seed, torch.float32).to(device)
+    flags0 = tf32_flags()
+    torch.cuda.synchronize()
+    latrd_panel.launches = latrd_panel_v4.launches = 0
+    t0 = time.perf_counter()
+    with PanelTally({"latrd_panel": "latrd"}, keep=True) as tally:
+        la, _, margliks, losses = marglik_training(net, ArrayLoader(X, y, batch_size=MT_BATCH),
+                                                   device=device, **kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {"latrd_panel": latrd_panel.launches, "latrd_panel_v4": latrd_panel_v4.launches}
+    flags_after = tf32_flags()
+    probs = la(X[:8])
+    row_err = float((probs.sum(-1) - 1).abs().max())
+    eig_err = kernel_eig_err(la)
+    panels = path_panels_vs_plain(latrd_panel, latrd_panel_plain, tally.inputs["latrd_panel"])
+
+    # the same run in float64, on the card (v1's launches counted again) and
+    # on the CPU
+    f64 = []
+    for dev in (device, torch.device("cpu")):
+        latrd_panel.launches = 0
+        t1 = time.perf_counter()
+        _, _, ml, lo = marglik_training(bench_cnn(seed, torch.float64),
+                                        ArrayLoader(X.astype(np.float64), y, batch_size=MT_BATCH),
+                                        device=dev, **kw)
+        f64.append((np.asarray(ml), np.asarray(lo), time.perf_counter() - t1, latrd_panel.launches))
+    (ml_g, lo_g, s_g, f64_launches), (ml_c, lo_c, s_c, _) = f64
+    res = dict(phase="marglik_training", nvidia_smi=smi, config="bench.py 3a",
+               model="BenchCNN (convs 32/64/64/128, Dense_0 to 10)", n_params=la.n_params,
+               n_data=MT_N, batch=MT_BATCH, epochs=MT_EPOCHS, hypersteps=MT_HYPERSTEPS,
+               dtype="float32", seconds=seconds, epochs_per_sec=MT_EPOCHS / seconds,
+               margliks=margliks, losses=losses,
+               layerwise_prior=la.prior_precision.tolist(), launches=launches,
+               v1_windows={f"{k[0]}x{k[1]}@{k[2]}": n for k, n in tally.counts["latrd_panel"].items()},
+               v1_vs_plain=panels, eig_rel_err_vs_eigh=eig_err,
+               probit_row_sum_err=row_err, tf32_flags_before=flags0, tf32_flags_after=flags_after,
+               f64_card_s=s_g, f64_cpu_s=s_c, f64_card_v1_launches=f64_launches,
+               f64_marglik_rel_err=float(np.abs(ml_g - ml_c).max() / np.abs(ml_c).max()),
+               f64_loss_rel_err=float(np.abs(lo_g - lo_c).max() / np.abs(lo_c).max()),
+               phase_s=time.perf_counter() - t_start)
+    emit(res)
+    check(isinstance(la, KronLaplace), f"marglik_training returned a {type(la).__name__}")
+    check(len(margliks) == MT_EPOCHS * MT_HYPERSTEPS and all(map(math.isfinite, margliks)),
+          f"margliks {margliks}")
+    check(launches["latrd_panel"] > 0 and launches["latrd_panel"] % 3 == 0,
+          f"v1 launched {launches['latrd_panel']} panels, not the same number on each of 3 fits")
+    check(sum(tally.counts["latrd_panel"].values()) == launches["latrd_panel"]
+          and all(k[0] == 2 for k in tally.counts["latrd_panel"]),
+          f"v1 panels {tally.counts['latrd_panel']}: not all of the (2, 576) class")
+    check(row_err <= 1e-5 and tuple(probs.shape) == (8, 10), f"probit rows sum to 1 within {row_err}")
+    check(flags_after == flags0, f"TF32 switches {flags0} read {flags_after} after marglik_training")
+    check(eig_err <= EIG_TOL, f"marglik_training eigenvalues off by {eig_err:.3e} > {EIG_TOL}")
+    check(len(panels) == len(tally.counts["latrd_panel"]),
+          f"v1 held against plain at {len(panels)} of {len(tally.counts['latrd_panel'])} windows")
+    check(f64_launches == launches["latrd_panel"],
+          f"the float64 card run launched v1 {f64_launches} times, the float32 run "
+          f"{launches['latrd_panel']}")
+    check(res["f64_marglik_rel_err"] <= MT_F64_TOL and res["f64_loss_rel_err"] <= MT_F64_TOL,
+          f"float64 card vs CPU: margliks {res['f64_marglik_rel_err']:.3e}, "
+          f"losses {res['f64_loss_rel_err']:.3e} > {MT_F64_TOL}")
+    return launches
+
+
+def window_study(seeds, device, smi):
+    """`--window-study SEEDS`: the `marglik_training` phase's float32 run
+    once a seed (data and weights from the seed), and v1 on each run's
+    last-fit windows through `path_panels_vs_plain`; one JSON line a seed,
+    then for each window key the median and largest of each number over the
+    seeds, and on how many seeds v1's error against float64 exceeds twice
+    the plain float32 panel's, the lower-half plain panel's does the same,
+    and v1 is beyond PANEL_TOL of plain."""
+    import numpy as np
+    import torch
+
+    from laplace_jax_torch import marglik_training
+    from laplace_jax_torch.ops.latrd import latrd_panel, latrd_panel_plain
+    from laplace_jax_torch.utils.data import ArrayLoader
+
+    by_key = {}
+    for seed in range(seeds):
+        rng = np.random.default_rng(seed)
+        X = rng.standard_normal((MT_N, 32, 32, 3)).astype(np.float32)
+        y = rng.integers(0, 10, MT_N)
+        t0 = time.perf_counter()
+        with PanelTally({"latrd_panel": "latrd"}, keep=True) as tally:
+            marglik_training(bench_cnn(seed, torch.float32).to(device),
+                             ArrayLoader(X, y, batch_size=MT_BATCH), likelihood="classification",
+                             hessian_structure="kron", n_epochs=MT_EPOCHS,
+                             n_hypersteps=MT_HYPERSTEPS, marglik_frequency=1, device=device)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        try:
+            rows, failed = path_panels_vs_plain(latrd_panel, latrd_panel_plain,
+                                                tally.inputs["latrd_panel"]), False
+        except SystemExit:  # a check failed (its message is on stderr): the study goes on
+            rows, failed = {}, True
+        for key, row in rows.items():
+            by_key.setdefault(key, []).append(row)
+        emit(dict(phase="window_study", seed=seed, path_s=seconds, failed=failed, windows=rows))
+
+    def stat(rows, name):
+        vals = np.array([r[name] for r in rows])
+        return dict(median=float(np.median(vals)), max=float(vals.max()))
+
+    names = ("residual", "residual_f64", "plain_residual", "rel_err", "err_vs_f64",
+             "plain_err_vs_f64", "lower_plain_err_vs_f64")
+    emit(dict(phase="window_study", nvidia_smi=smi, seeds=seeds, summary={
+        key: dict({n: stat(rows, n) for n in names}, seeds=len(rows),
+                  residual_over_plain=dict(min=min(r["residual"] / r["plain_residual"] for r in rows),
+                                           max=max(r["residual"] / r["plain_residual"] for r in rows)),
+                  kernel_over_2x_plain=sum(r["err_vs_f64"] > 2 * r["plain_err_vs_f64"] for r in rows),
+                  lower_over_2x_plain=sum(r["lower_plain_err_vs_f64"] > 2 * r["plain_err_vs_f64"]
+                                          for r in rows),
+                  rel_err_over_panel_tol=sum(r["rel_err"] > PANEL_TOL for r in rows))
+        for key, rows in by_key.items()}))
+
+
+NN_F32_TOL = 1e-3  # a float32 sampled network vs float64, relative to its largest output
+F32_MAX = 3.4028234663852886e38
+
+
+class GaussianNLL:
+    """The mean Gaussian negative log likelihood of targets under a
+    regression predictive `(f_mu, f_var)` plus the noise variance."""
+
+    def __init__(self, sigma_noise: float):
+        self.s2 = sigma_noise**2
+        self.reset()
+
+    def reset(self):
+        self.total, self.count = 0.0, 0
+
+    def update(self, mean, var, y):
+        import torch
+
+        var = torch.diagonal(var, dim1=-2, dim2=-1) if var.ndim > mean.ndim else var
+        v = var.double() + self.s2
+        nll = 0.5 * (torch.log(2 * math.pi * v) + (y.double() - mean.double()) ** 2 / v)
+        self.total += float(nll.sum())
+        self.count += mean.shape[0]
+
+    def compute(self):
+        return self.total / self.count
+
+
+def rms_ratio(a, b):
+    """rms(a) / rms(b), or None where b is all zeros."""
+    rb = float(b.double().pow(2).mean().sqrt())
+    return float(a.double().pow(2).mean().sqrt()) / rb if rb > 0 else None
+
+
+def nn_samples_report(la, x, gen, pred):
+    """What the NN predictive `pred` = (mean, var) of `la` drew: the same
+    16 weight samples (`gen` seeded as for `pred`), each leaf's spread about
+    the mean against the prior (mean squared deviation times the leaf's prior
+    precision: the posterior covariance is at most the prior's, so at most 1
+    up to the noise of 16 draws), and each Conv/Dense layer's largest
+    |output| over the samples in float32 and, for the same weights, in
+    float64. A sample whose float64 outputs all stay inside float32's range
+    must agree with its float32 run within NN_F32_TOL."""
+    import copy
+
+    import torch
+    from torch import nn
+
+    from laplace_jax_torch.models.resnet import Conv
+    from laplace_jax_torch.nnmodel import NNModel
+    from laplace_jax_torch.utils.device import full_f32
+
+    theta = la.sample(16, generator=gen)
+    dev2 = (theta - la.mean).double().pow(2).mean(0) * la.prior_precision_diag.double()
+    # each leaf's spread over its bound, 1 + 6 standard deviations of the
+    # mean of 16 x size squared standard normals
+    spread = {"/".join(sp.path): float(dev2[sp.offset:sp.offset + sp.size].mean())
+              / (1 + 6 * math.sqrt(2 / (16 * sp.size))) for sp in la.model.leaf_specs}
+
+    def run(module, thetas, xx):
+        peaks, hooks = {}, []
+        for name, m in module.named_modules():
+            if isinstance(m, (Conv, nn.Linear)):
+                def hook(_, __, out, name=name):
+                    a = out.detach().abs()
+                    fin = a[torch.isfinite(a)]
+                    peaks.setdefault(name, []).append(
+                        (float(fin.max()) if fin.numel() else 0.0, bool(torch.isfinite(a).all())))
+                hooks.append(m.register_forward_hook(hook))
+        nnm = NNModel(module)
+        try:
+            with torch.no_grad(), full_f32():
+                fs = torch.stack([nnm.apply_vec(t, xx) for t in thetas])
+        finally:
+            for h in hooks:
+                h.remove()
+        return fs, peaks
+
+    net = la.model.module
+    f32, peaks32 = run(net, theta, la._tensor(x))
+    f64, peaks64 = run(copy.deepcopy(net).double(), theta.double(), la._tensor(x).double())
+    # per sample: its largest float64 output over every layer
+    top64 = [max(v[s][0] for v in peaks64.values()) for s in range(len(theta))]
+    inside = [s for s, t in enumerate(top64) if t < F32_MAX / 16]
+    errs = [float((f32[s].double() - f64[s]).abs().max() / f64[s].abs().max().clamp(min=1e-300))
+            for s in inside]
+    first_nonfinite = next((n for n, v in peaks32.items() if not all(ok for _, ok in v)), None)
+    mean, var = pred
+    # the predictive of the float64 outputs, as the port forms it
+    pred64_max = max(float(f64.mean(0).abs().max()), float(f64.var(0, unbiased=False).max()))
+    return dict(
+        prior_precision=la.prior_precision.tolist(),
+        spread_over_bound_max=max(spread.values()), spread_over_bound=spread,
+        deviation_rms_over_mean_rms={"/".join(sp.path): rms_ratio(
+            theta[:, sp.offset:sp.offset + sp.size] - la.mean[sp.offset:sp.offset + sp.size],
+            la.mean[sp.offset:sp.offset + sp.size]) for sp in la.model.leaf_specs},
+        peak_f32={n: max(p for p, _ in v) for n, v in peaks32.items()},
+        peak_f64={n: max(p for p, _ in v) for n, v in peaks64.items()},
+        first_nonfinite_layer_f32=first_nonfinite,
+        f32_samples_finite=int(torch.isfinite(f32).flatten(1).all(1).sum()),
+        samples_beyond_f32=sum(t >= F32_MAX for t in top64),
+        f64_finite=bool(torch.isfinite(f64).all()),
+        f64_abs_max=float(f64.abs().max()),
+        in_range_samples=len(inside), in_range_rel_err=max(errs, default=0.0),
+        in_range_agree=all(e <= NN_F32_TOL for e in errs),
+        predictive_finite=bool(torch.isfinite(mean).all() and torch.isfinite(var).all()),
+        predictive_nan=bool(torch.isnan(mean).any() or torch.isnan(var).any()),
+        predictive_f64_max=pred64_max, predictive_f64_beyond_f32=pred64_max >= F32_MAX)
+
+
+def regression_phase(seed, device, smi):
+    """Regression at full width: ResNet-18 (width 64, one output) on the
+    main path's 512 inputs with float targets from `seed`, batch 128,
+    float32: an all-weights `KronLaplace` (v1 and v4 launches read from its
+    fit), 100 marglik steps tuning a layerwise prior, the marglik's gradient in
+    `sigma_noise`, the GLM `(f_mu, f_var)` and `log_prob(la.mean)`, NN
+    predictives (16 samples from `KronLaplace.sample`) on 8 inputs under the
+    tuned prior and under one at the initialization's scale; a FullLL fit
+    (syrk launches read from it); and gridsearches on a KronLL (Gaussian
+    NLL and the default `RunningMSEMetric`, 128 validation inputs, the
+    default grid of 100)."""
+    import numpy as np
+    import torch
+
+    from laplace_jax_torch import KronLaplace, Laplace
+    from laplace_jax_torch.models.resnet import ResNet18
+    from laplace_jax_torch.ops.latrd import latrd_panel
+    from laplace_jax_torch.ops.latrd_v4 import latrd_panel_v4
+    from laplace_jax_torch.ops.syrk import syrk
+    from laplace_jax_torch.utils.data import ArrayLoader
+
+    t_start = time.perf_counter()
+    _, loader, X_test = full_width(seed)
+    rng = np.random.default_rng(seed + 1)
+    y = rng.standard_normal((loader.n_data, 1)).astype(np.float32)
+    train = ArrayLoader(loader.x, y, batch_size=128)
+    net = ResNet18(width=64, num_classes=1, generator=torch.Generator().manual_seed(seed))
+    res = dict(phase="regression", nvidia_smi=smi, model="ResNet18(width=64, num_classes=1)",
+               n_data=loader.n_data, batch=128, dtype="float32")
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        res[f"{name}_s"] = time.perf_counter() - t0
+        return out
+
+    la = KronLaplace(net, "regression", device=device)
+    latrd_panel.launches = latrd_panel_v4.launches = 0
+    timed("kron_fit", lambda: la.fit(train))
+    launches = {"latrd_panel": latrd_panel.launches, "latrd_panel_v4": latrd_panel_v4.launches}
+    res.update(n_params=la.n_params, launches=launches, log_marglik=float(la.log_marginal_likelihood()))
+    timed("marglik_100_steps", lambda: la.optimize_prior_precision(
+        method="marglik", n_steps=100, prior_structure="layerwise"))
+    res["prior_precision"] = la.prior_precision.tolist()
+    sn = torch.tensor(1.0, device=device, requires_grad=True)
+    lml = timed("marglik_grad", lambda: la.log_marginal_likelihood(sigma_noise=sn))
+    lml.backward()
+    res["marglik_grad_sigma_noise"] = float(sn.grad)
+    f_mu, f_var = timed("glm_predictive_8", lambda: la(X_test[:8]))
+    res["f_var_min"] = float(f_var.min())
+    log_prob = float(timed("log_prob", lambda: la.log_prob(la.mean)))
+    res["log_prob_at_mean"] = log_prob
+
+    # the NN predictive under the tuned prior, and what its 16 weight
+    # samples do: their spread against the prior's, each layer's largest
+    # output in float32 and, for the same weights, in float64
+    def nn_predictive():
+        return la(X_test[:8], pred_type="nn", link_approx="mc", n_samples=16,
+                  generator=torch.Generator(device=device).manual_seed(seed))
+
+    tuned = timed("nn_predictive_tuned_16x8", nn_predictive)
+    res["nn_tuned"] = nn_samples_report(la, X_test[:8],
+                                        torch.Generator(device=device).manual_seed(seed), tuned)
+    # and under a prior at the scale of the initialization, 1 / mean(w^2) a
+    # layer, whose samples stay inside float32's range
+    res["nn_prior_precision"] = [1.0 / max(float(la.mean[sp.offset:sp.offset + sp.size].pow(2)
+                                                 .mean()), 1e-4) for sp in la.model.leaf_specs]
+    la.prior_precision = res["nn_prior_precision"]
+    nn_mean, nn_var = timed("nn_predictive_16x8", nn_predictive)
+    res["nn_init_scale"] = nn_samples_report(la, X_test[:8],
+                                             torch.Generator(device=device).manual_seed(seed),
+                                             (nn_mean, nn_var))
+
+    full = Laplace(net, "regression", "last_layer", "full", device=device)
+    syrk.launches = 0
+    timed("full_ll_fit", lambda: full.fit(train))
+    res["full_ll_syrk_launches"] = syrk.launches
+    res["full_ll_log_marglik"] = float(full.log_marginal_likelihood())
+
+    # the gridsearch scored by the Gaussian NLL of f under (f_mu, f_var),
+    # which depends on the prior, on validation targets drawn from that
+    # predictive at the grid's middle prior (so the best prior lies inside
+    # the grid); its choice against the argmin of the same scores taken
+    # outside the gridsearch
+    kron_ll = Laplace(net, "regression", device=device)
+    timed("kron_ll_fit", lambda: kron_ll.fit(train))
+    grid = np.logspace(-4, 4, 100)
+    kron_ll.prior_precision = float(grid[50])
+    mu, var = kron_ll(X_test, diagonal_output=True)
+    z = torch.as_tensor(rng.standard_normal(tuple(mu.shape)), dtype=mu.dtype, device=device)
+    y_val = mu + z * var.sqrt()
+    val = ArrayLoader(X_test, y_val.cpu().numpy(), batch_size=128)
+    timed("gridsearch_100", lambda: kron_ll.optimize_prior_precision(
+        method="gridsearch", val_loader=val, loss=GaussianNLL(0.0)))
+    res["gridsearch_prior_precision"] = chosen = float(kron_ll.prior_precision[0])
+    # the default score for regression, `RunningMSEMetric`, sees only f_mu,
+    # which the prior does not move: this shows only that a grid value
+    # comes back
+    timed("gridsearch_mse_100", lambda: kron_ll.optimize_prior_precision(
+        method="gridsearch", val_loader=val))
+    res["gridsearch_mse_prior_precision"] = float(kron_ll.prior_precision[0])
+    scores = []
+    for p in grid:
+        kron_ll.prior_precision = float(p)
+        nll = GaussianNLL(0.0)
+        nll.update(*kron_ll(X_test), y_val)
+        scores.append(nll.compute())
+    res["gridsearch_scores"] = dict(targets_at=float(grid[50]), min=min(scores), max=max(scores),
+                                    argmin=float(grid[int(np.argmin(scores))]))
+    res["phase_s"] = time.perf_counter() - t_start
+    emit(res)
+
+    check(la.n_params == 11_159_745, f"regression ResNet-18 has {la.n_params} weights")
+    check(launches == MAIN_LAUNCHES, f"regression fit launches {launches}, not {MAIN_LAUNCHES}")
+    check(math.isfinite(res["log_marglik"]), "regression marglik is not finite")
+    check(len(res["prior_precision"]) == la.n_layers
+          and all(math.isfinite(p) and p > 0 for p in res["prior_precision"]),
+          f"tuned layerwise prior precision {res['prior_precision']}")
+    check(math.isfinite(res["marglik_grad_sigma_noise"]), "marglik gradient in sigma_noise")
+    check(tuple(f_mu.shape) == (8, 1) and tuple(f_var.shape) == (8, 1, 1)
+          and bool(torch.isfinite(f_mu).all()) and res["f_var_min"] > 0,
+          f"GLM predictive shapes {tuple(f_mu.shape)}, {tuple(f_var.shape)}, min var {res['f_var_min']}")
+    check(tuple(nn_mean.shape) == (8, 1) and bool(torch.isfinite(nn_mean).all())
+          and bool(torch.isfinite(nn_var).all()) and bool((nn_var >= 0).all()),
+          "NN predictive under the initialization-scale prior is not finite")
+    for name in ("nn_tuned", "nn_init_scale"):
+        r = res[name]
+        check(r["spread_over_bound_max"] <= 1, f"{name}: a leaf's samples spread wider than "
+              f"the prior allows ({r['spread_over_bound_max']:.3f} of the bound)")
+        check(r["f64_finite"], f"{name}: float64 outputs of the sampled networks are not finite")
+        check(r["in_range_agree"], f"{name}: a sample inside float32's range disagrees with "
+              f"float64 ({r['in_range_rel_err']:.3e} > {NN_F32_TOL})")
+        check(not r["predictive_nan"], f"{name}: the NN predictive holds NaN")
+        check(r["predictive_finite"] or r["samples_beyond_f32"] > 0 or r["predictive_f64_beyond_f32"],
+              f"{name}: the NN predictive is not finite, yet in float64 neither a sample nor "
+              f"the predictive leaves float32's range")
+    check(math.isfinite(log_prob), f"log_prob(la.mean) = {log_prob}")
+    check(res["full_ll_syrk_launches"] == 4,
+          f"the regression FullLL fit launched syrk {res['full_ll_syrk_launches']} times, not 4")
+    check(math.isfinite(res["full_ll_log_marglik"]), "FullLL regression marglik is not finite")
+    check(res["gridsearch_scores"]["max"] > res["gridsearch_scores"]["min"],
+          f"gridsearch scores do not vary with the prior: {res['gridsearch_scores']}")
+    check(math.isclose(chosen, res["gridsearch_scores"]["argmin"], rel_tol=1e-6),
+          f"gridsearch chose {chosen}, the scores' argmin is {res['gridsearch_scores']['argmin']}")
+    check(grid[0] < chosen < grid[-1], f"gridsearch chose {chosen}, an end of the grid")
+    check(bool(np.isclose(grid, res["gridsearch_mse_prior_precision"], rtol=1e-6).any()),
+          f"MSE gridsearch chose {res['gridsearch_mse_prior_precision']}, not a grid value")
+    return {"latrd_panel": launches["latrd_panel"], "latrd_panel_v4": launches["latrd_panel_v4"],
+            "syrk": res["full_ll_syrk_launches"]}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--window-study", type=int, default=0, metavar="SEEDS",
+                    help="after the build, run only the v1 window study over SEEDS seeds")
     args = ap.parse_args()
 
     import torch
@@ -933,6 +1488,9 @@ def main() -> None:
                     for K, n in ((4, 1152), (3, 4608)) for dt, size in (("float32", 4),
                                                                       ("float64", 8))}))
 
+    if args.window_study:
+        window_study(args.window_study, device, smi)
+        return
     rows = [kernel_phase(*row, args.seed, device) for row in KERNELS]
     rows.append(syrk_phase(args.seed, device, _build.build_log("syrk")))
     reference_phase(args.seed, device)
@@ -948,12 +1506,17 @@ def main() -> None:
     route_launches, route_panels = eigensolvers_phase(args.seed, device, main)
     launches.update(route_launches)
     window_phase(rows, route_panels, args.seed, device, smi, total="route_ms")
+    # the marglik-training and regression paths, each read from its own run
+    by_path = {"marglik_training": marglik_training_phase(args.seed, device, smi),
+               "regression": regression_phase(args.seed, device, smi)}
 
     keys = ("name", "route", "source", "replaces", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     extra = ("main_path_ms", "route_ms", "stream_bound_ms", "ms_3x4608")
     print(json.dumps({"kernels": [dict({k: r[k] for k in keys}, launches=launches[r["name"]],
-                                       **{k: r[k] for k in extra if k in r})
+                                       **{k: r[k] for k in extra if k in r},
+                                       launches_by_path={p: n[r["name"]] for p, n in by_path.items()
+                                                         if r["name"] in n})
                                   for r in rows]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -13,6 +13,7 @@ from laplace_jax_torch.baselaplace import (
     ParametricLaplace,
 )
 from laplace_jax_torch.enums import (
+    FeatureReduction,
     HessianStructure,
     Likelihood,
     LinkApprox,
@@ -23,7 +24,16 @@ from laplace_jax_torch.enums import (
 )
 from laplace_jax_torch.laplace import Laplace
 from laplace_jax_torch.lllaplace import DiagLLLaplace, FullLLLaplace, KronLLLaplace, LLLaplace
+from laplace_jax_torch.marglik_training import marglik_training
 from laplace_jax_torch.nnmodel import NNModel
+from laplace_jax_torch.utils import (
+    ArrayLoader,
+    RunningMSEMetric,
+    RunningNLLMetric,
+    expected_calibration_error,
+    get_nll,
+    validate,
+)
 
 __all__ = [
     "BaseLaplace",
@@ -36,7 +46,15 @@ __all__ = [
     "FullLLLaplace",
     "DiagLLLaplace",
     "Laplace",
+    "marglik_training",
     "NNModel",
+    "ArrayLoader",
+    "RunningMSEMetric",
+    "RunningNLLMetric",
+    "expected_calibration_error",
+    "get_nll",
+    "validate",
+    "FeatureReduction",
     "HessianStructure",
     "Likelihood",
     "LinkApprox",

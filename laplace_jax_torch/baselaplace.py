@@ -4,15 +4,24 @@ Kron, Full and Diag posteriors (port of `laplace_jax/baselaplace.py`).
 - `fit` accumulates per-batch curvature in a Python loop (the JAX
   package's `lax.scan`): KFAC factors, merged across online fits with the
   N-rescaled activation factor and then eigendecomposed (Kron); the dense
-  GGN through the `syrk` kernel (Full); the GGN diagonal (Diag).
+  GGN through the `syrk` kernel (Full); the GGN diagonal (Diag). Batches are
+  `(X, y)` pairs or dicts (`dict_key_y` names the targets; the forward gets
+  the whole dict).
+- The likelihood is 'classification', 'regression' (½·SSE loss, noise
+  `sigma_noise`) or 'reward_modeling' (fitted as classification, predicted
+  as regression unless `fitting=True`).
 - `log_marginal_likelihood` is differentiable in the prior precision and
-  the noise; `optimize_prior_precision` runs `torch.optim.Adam` on the log
-  prior precision (the same update as optax's Adam).
-- The GLM predictive uses the per-sample Jacobians (`_jacobians_dispatch`)
-  and the probit link; `predictive_samples` draws GLM samples through the
-  softmax.
+  `sigma_noise`; `optimize_prior_precision` runs `torch.optim.Adam` on the
+  log prior precision (the same update as optax's Adam) or a gridsearch
+  against a validation metric (`utils/validate.py`).
+- The predictive: GLM (per-sample Jacobians, `_jacobians_dispatch`) with
+  the probit, bridge, bridge_norm or MC link, `joint` covariances for
+  regression; or NN (posterior weight samples through the network).
+  Random draws come from the caller's `generator`, else from a
+  per-instance generator seeded 0 that advances with every use.
+- With `enable_backprop`, the predictive and the fitted mean keep their
+  autograd graph.
 
-The likelihood is classification (regression is not ported yet).
 Everything runs on `device`: CUDA unless the caller passes `device="cpu"`.
 Fits, marglik and the predictives run in full float32 (`utils/device.full_f32`);
 the caller's TF32 settings are left as they were.
@@ -23,13 +32,15 @@ from __future__ import annotations
 import math
 import time
 
+import numpy as np
 import torch
 
 from laplace_jax_torch.curvature.backend import CurvatureBackend
-from laplace_jax_torch.enums import Likelihood, PredType, PriorStructure, TuningMethod
-from laplace_jax_torch.nnmodel import NNModel
+from laplace_jax_torch.enums import Likelihood, LinkApprox, PredType, PriorStructure, TuningMethod
+from laplace_jax_torch.nnmodel import NNModel, batch_slice, unpack_batch
 from laplace_jax_torch.utils.data import dataset_size
-from laplace_jax_torch.utils.device import full_f32, resolve_device
+from laplace_jax_torch.utils.device import full_f32, resolve_device, to_device
+from laplace_jax_torch.utils.flatten import parameters_to_vector
 from laplace_jax_torch.utils.linalg import invsqrt_precision, normal_samples
 from laplace_jax_torch.utils.matrix import Kron, KronDecomposed, broadcast_groups
 from laplace_jax_torch.utils.prior import fix_prior_prec_structure
@@ -37,15 +48,19 @@ from laplace_jax_torch.utils.prior import fix_prior_prec_structure
 __all__ = ["BaseLaplace", "ParametricLaplace", "KronLaplace", "FullLaplace", "DiagLaplace"]
 
 
+def _requires_grad(x) -> bool:
+    return torch.is_tensor(x) and x.requires_grad
+
+
 class BaseLaplace:
     """Base class (reference `baselaplace.py:77`). `model` is an `nn.Module`
     taking the public input layout; it is moved to `device`."""
 
     def __init__(self, model, likelihood, sigma_noise=1.0, prior_precision=1.0,
-                 prior_mean=0.0, temperature: float = 1.0, device=None):
-        if likelihood != Likelihood.CLASSIFICATION:
-            raise ValueError(f"Likelihood {likelihood!r} is not ported; only "
-                             "'classification' is.")
+                 prior_mean=0.0, temperature: float = 1.0, enable_backprop: bool = False,
+                 dict_key_x: str = "input_ids", dict_key_y: str = "labels", device=None):
+        if likelihood not in [lik.value for lik in Likelihood]:
+            raise ValueError(f"Invalid likelihood type {likelihood}")
         self.device = resolve_device(device)
         self.model = NNModel(model.to(self.device))
         self.likelihood = likelihood
@@ -53,20 +68,63 @@ class BaseLaplace:
         self.n_layers = self.model.n_layers
         self.prior_precision = prior_precision
         self.prior_mean = prior_mean
-        if sigma_noise != 1:
+        if sigma_noise != 1 and likelihood != Likelihood.REGRESSION:
             raise ValueError("Sigma noise != 1 only available for regression.")
         self.sigma_noise = sigma_noise
         self.temperature = temperature
+        self.enable_backprop = enable_backprop
+        self.dict_key_x = dict_key_x
+        self.dict_key_y = dict_key_y
         self.loss = 0.0
+        self.n_outputs = 0
         self.n_data = 0
-        self.backend = CurvatureBackend(self.model)
+        self._generator = None
+        self.backend = CurvatureBackend(self.model, self._backend_likelihood)
+
+    @property
+    def _backend_likelihood(self):
+        """Reward modeling fits as classification."""
+        if self.likelihood == Likelihood.REWARD_MODELING:
+            return Likelihood.CLASSIFICATION
+        return self.likelihood
 
     @property
     def _dtype(self):
         return self.model.params_in_order()[0].dtype
 
     def _tensor(self, x):
+        """An input on this Laplace's device (`utils/device.to_device`)."""
+        return to_device(x, self.device, self._dtype)
+
+    def _float(self, x) -> torch.Tensor:
+        """A hyperparameter or parameter vector as a tensor of the
+        parameters' dtype on this Laplace's device (keeps its graph)."""
         return torch.as_tensor(x, dtype=self._dtype, device=self.device)
+
+    def _rng(self, generator=None) -> torch.Generator:
+        """`generator`, or this instance's own generator (seeded 0 on first
+        use, on this Laplace's device), which advances with every draw."""
+        if generator is not None:
+            return generator
+        if self._generator is None:
+            self._generator = torch.Generator(device=self.device).manual_seed(0)
+        return self._generator
+
+    def _unpack_batch(self, data):
+        """(X, y) from a pair or from a dict batch."""
+        return unpack_batch(data, self.dict_key_y)
+
+    @staticmethod
+    def _check_loader(train_loader) -> None:
+        """Reject one-shot iterators: the fit probes one batch and then
+        iterates the loader again."""
+        try:
+            is_one_shot = iter(train_loader) is train_loader
+        except TypeError:
+            raise ValueError("train_loader must be an iterable of batches.")
+        if is_one_shot:
+            raise ValueError("train_loader must be re-iterable (not a one-shot iterator); "
+                             "pass an ArrayLoader or a list of batches.")
 
     # ---- priors
     @property
@@ -76,7 +134,7 @@ class BaseLaplace:
     @prior_precision.setter
     def prior_precision(self, prior_precision):
         self._posterior_scale = None
-        pp = torch.atleast_1d(self._tensor(prior_precision))
+        pp = torch.atleast_1d(self._float(prior_precision))
         if pp.ndim > 1:
             raise ValueError("Prior precision needs to be at most one-dimensional.")
         if pp.shape[0] not in (1, self.n_layers, self.n_params):
@@ -89,7 +147,7 @@ class BaseLaplace:
 
     @prior_mean.setter
     def prior_mean(self, prior_mean):
-        pm = torch.atleast_1d(self._tensor(prior_mean))
+        pm = torch.atleast_1d(self._float(prior_mean))
         if pm.ndim > 1 or pm.shape[0] not in (1, self.n_params):
             raise ValueError("Invalid length of prior mean.")
         self._prior_mean = pm
@@ -100,9 +158,11 @@ class BaseLaplace:
 
     @sigma_noise.setter
     def sigma_noise(self, sigma_noise):
-        sn = self._tensor(sigma_noise)
+        self._posterior_scale = None
+        sn = self._float(sigma_noise)
         if sn.ndim > 1 or sn.numel() != 1:
-            raise ValueError("Sigma noise needs to be a scalar.")
+            raise ValueError("Only homoscedastic output noise supported: sigma_noise "
+                             "must be a scalar.")
         self._sigma_noise = sn.reshape(())
 
     @property
@@ -120,31 +180,89 @@ class BaseLaplace:
             return broadcast_groups(pp, [s.size for s in self.model.leaf_specs])
         raise ValueError("Mismatch of prior and model. Diagonal, scalar, or per-layer prior.")
 
+    def _h_factor(self, sigma_noise):
+        return 1.0 / (sigma_noise ** 2) / self.temperature
+
+    # ---- likelihood
+    @property
+    def log_likelihood(self) -> torch.Tensor:
+        """The training log likelihood from the fitted loss, differentiable
+        in `sigma_noise` (reference `baselaplace.py:261-276`)."""
+        return self._log_likelihood(self.sigma_noise)
+
     def _log_likelihood(self, sigma_noise) -> torch.Tensor:
-        return -1.0 / (sigma_noise ** 2) / self.temperature * self.loss
+        factor = -self._h_factor(sigma_noise)
+        if self.likelihood == Likelihood.REGRESSION:
+            c = self.n_data * self.n_outputs * torch.log(sigma_noise * math.sqrt(2 * math.pi))
+            return factor * self.loss - c
+        return factor * self.loss
 
     # ---- prior tuning
     @full_f32()
-    def optimize_prior_precision(self, method=TuningMethod.MARGLIK, n_steps: int = 100,
-                                 lr: float = 1e-1, init_prior_prec=1.0,
-                                 prior_structure=PriorStructure.SCALAR) -> None:
-        """Post-hoc prior-precision tuning by marglik gradient steps
-        (reference `baselaplace.py:479`); gridsearch is not ported."""
-        if method != TuningMethod.MARGLIK:
-            raise ValueError("Only the marglik method is ported.")
-        self.prior_precision = init_prior_prec
-        if self.prior_precision.shape[0] == 1 and prior_structure != PriorStructure.SCALAR:
-            self.prior_precision = fix_prior_prec_structure(
-                float(self.prior_precision[0]), prior_structure, self.n_layers,
-                self.n_params, dtype=self._dtype, device=self.device)
-        log_pp = self.prior_precision.log().clone().requires_grad_(True)
-        opt = torch.optim.Adam([log_pp], lr=lr)
-        for _ in range(n_steps):
-            opt.zero_grad()
-            neg = -self._log_marglik(log_pp.exp(), self.sigma_noise)
-            neg.backward()
-            opt.step()
-        self.prior_precision = log_pp.detach().exp()
+    def optimize_prior_precision(self, pred_type=PredType.GLM, method=TuningMethod.MARGLIK,
+                                 n_steps: int = 100, lr: float = 1e-1, init_prior_prec=1.0,
+                                 prior_structure=PriorStructure.SCALAR, val_loader=None,
+                                 loss=None, log_prior_prec_min: float = -4,
+                                 log_prior_prec_max: float = 4, grid_size: int = 100,
+                                 link_approx=LinkApprox.PROBIT, n_samples: int = 100) -> None:
+        """Post-hoc prior-precision tuning (reference `baselaplace.py:479-612`):
+        `n_steps` Adam steps on the log marglik, or a gridsearch over
+        `grid_size` log-spaced values in [10^min, 10^max] for the lowest
+        validation `loss` (default `RunningMSEMetric` for regression, else
+        `RunningNLLMetric`) of the predictive on `val_loader`."""
+        likelihood = (Likelihood.CLASSIFICATION if self.likelihood == Likelihood.REWARD_MODELING
+                      else self.likelihood)
+        if method == TuningMethod.MARGLIK:
+            self.prior_precision = init_prior_prec
+            if self.prior_precision.shape[0] == 1 and prior_structure != PriorStructure.SCALAR:
+                self.prior_precision = fix_prior_prec_structure(
+                    float(self.prior_precision[0]), prior_structure, self.n_layers,
+                    self.n_params, dtype=self._dtype, device=self.device)
+            log_pp = self.prior_precision.log().clone().requires_grad_(True)
+            opt = torch.optim.Adam([log_pp], lr=lr)
+            for _ in range(n_steps):
+                opt.zero_grad()
+                neg = -self._log_marglik(log_pp.exp(), self.sigma_noise)
+                neg.backward()
+                opt.step()
+            self.prior_precision = log_pp.detach().exp()
+        elif method == TuningMethod.GRIDSEARCH:
+            if val_loader is None:
+                raise ValueError("gridsearch requires a validation set loader")
+            from laplace_jax_torch.utils.metrics import RunningMSEMetric, RunningNLLMetric
+
+            if loss is None:
+                loss = (RunningMSEMetric() if likelihood == Likelihood.REGRESSION
+                        else RunningNLLMetric())
+            interval = np.logspace(log_prior_prec_min, log_prior_prec_max, grid_size)
+            self.prior_precision = self._gridsearch(loss, interval, val_loader, pred_type,
+                                                    link_approx, n_samples)
+        else:
+            raise ValueError("For now only marglik and gridsearch is implemented.")
+
+    def _gridsearch(self, loss, interval, val_loader, pred_type, link_approx=LinkApprox.PROBIT,
+                    n_samples: int = 100):
+        """The grid value with the lowest validation loss; a predictive that
+        fails to factor its covariance, or a non-finite loss, scores inf
+        (reference `baselaplace.py:585-612`)."""
+        from laplace_jax_torch.utils.validate import validate
+
+        results = []
+        for prior_prec in interval:
+            self.prior_precision = float(prior_prec)
+            try:
+                result = validate(self, val_loader, loss, pred_type=pred_type,
+                                  link_approx=link_approx, n_samples=n_samples,
+                                  dict_key_y=self.dict_key_y)
+                if not np.isfinite(result):
+                    result = np.inf
+            except (FloatingPointError, torch.linalg.LinAlgError):
+                result = np.inf
+            results.append(result)
+        return float(interval[int(np.argmin(results))])
+
+    def predictive(self, x, pred_type, link_approx, n_samples):
+        return self(x, pred_type=pred_type, link_approx=link_approx, n_samples=n_samples)
 
 
 class ParametricLaplace(BaseLaplace):
@@ -163,23 +281,30 @@ class ParametricLaplace(BaseLaplace):
     @full_f32()
     def fit(self, train_loader, override: bool = True) -> None:
         """Accumulate batch curvature over the loader (reference
-        `baselaplace.py:709`, `_scan_accumulate` at `:814`); `fit_seconds["accumulate"]` records the
-        loop's wall time."""
-        if iter(train_loader) is train_loader:
-            raise ValueError("train_loader must be re-iterable (not a one-shot iterator).")
+        `baselaplace.py:709`, `_scan_accumulate` at `:814`); `n_outputs` comes
+        from a forward of the first batch's first input.
+        `fit_seconds["accumulate"]` records the loop's wall time."""
+        self._check_loader(train_loader)
         if override:
             self.loss = 0.0
             self.n_data = 0
-        self.mean = self.model.mean_vector.detach()
+        self.mean = parameters_to_vector(self.model.module, self.model.leaf_specs,
+                                         detach=not self.enable_backprop)
+        X, y = self._unpack_batch(next(iter(train_loader)))
+        with torch.no_grad():
+            out = self.model.apply(batch_slice(self._tensor(X), slice(0, 1)))
+        self.n_outputs = out.shape[-1]
+        y_ndim = y.ndim if hasattr(y, "ndim") else np.ndim(y)
+        if self.likelihood == Likelihood.REGRESSION and y_ndim != out.ndim:
+            raise ValueError(f"The model's output has {out.ndim} dims but the target has "
+                             f"{y_ndim} dims.")
         N = dataset_size(train_loader)
         self._sync()
         t0 = time.perf_counter()
         H = None
         for data in train_loader:
-            X, y = data
-            X = self._tensor(X)
-            y = torch.as_tensor(y, device=self.device)
-            loss_b, H_b = self._curv_closure(X, y, N)
+            X, y = self._unpack_batch(data)
+            loss_b, H_b = self._curv_closure(self._tensor(X), self._tensor(y), N)
             self.loss = self.loss + loss_b
             H = H_b if H is None else H + H_b
         if H is None:
@@ -193,12 +318,30 @@ class ParametricLaplace(BaseLaplace):
         raise NotImplementedError
 
     # ---- marglik
+    @property
+    def scatter(self) -> torch.Tensor:
+        """(θ_MAP − μ₀)ᵀ P₀ (θ_MAP − μ₀)."""
+        return self._scatter(self.prior_precision)
+
     def _scatter(self, prior_precision) -> torch.Tensor:
         delta = self.mean - self.prior_mean
         return (delta * self._prior_precision_diag(prior_precision)) @ delta
 
+    @property
+    def log_det_prior_precision(self) -> torch.Tensor:
+        return torch.log(self.prior_precision_diag).sum()
+
+    @property
+    def log_det_posterior_precision(self) -> torch.Tensor:
+        return self._log_det_posterior_precision(self.prior_precision, self.sigma_noise)
+
     def _log_det_posterior_precision(self, prior_precision, sigma_noise):
         raise NotImplementedError
+
+    @property
+    def log_det_ratio(self) -> torch.Tensor:
+        """log det P − log det P₀."""
+        return self._log_det_ratio(self.prior_precision, self.sigma_noise)
 
     def _log_det_ratio(self, prior_precision, sigma_noise):
         if self.H is None:  # not fitted: the posterior is the prior
@@ -214,64 +357,197 @@ class ParametricLaplace(BaseLaplace):
     @full_f32()
     def log_marginal_likelihood(self, prior_precision=None, sigma_noise=None):
         """Laplace approximation to the log marginal likelihood, differentiable
-        in its arguments (reference `baselaplace.py:892`)."""
-        if prior_precision is not None and not (
-                torch.is_tensor(prior_precision) and prior_precision.requires_grad):
+        in its arguments (reference `baselaplace.py:892`): an argument that
+        requires grad is used as it is, any other is also stored."""
+        if prior_precision is not None and not _requires_grad(prior_precision):
             self.prior_precision = prior_precision
         if sigma_noise is not None:
-            raise ValueError("Can only change sigma_noise for regression.")
+            if self.likelihood != Likelihood.REGRESSION:
+                raise ValueError("Can only change sigma_noise for regression.")
+            if not _requires_grad(sigma_noise):
+                self.sigma_noise = sigma_noise
         pp = (self.prior_precision if prior_precision is None
-              else torch.atleast_1d(self._tensor(prior_precision)))
-        return self._log_marglik(pp, self.sigma_noise)
+              else torch.atleast_1d(self._float(prior_precision)))
+        sn = self.sigma_noise if sigma_noise is None else self._float(sigma_noise).reshape(())
+        return self._log_marglik(pp, sn)
+
+    def square_norm(self, value) -> torch.Tensor:
+        raise NotImplementedError
+
+    @full_f32()
+    def log_prob(self, value, normalized: bool = True) -> torch.Tensor:
+        """Log density of `value` (n_params,) under the Gaussian posterior
+        (reference `baselaplace.py:881-890`)."""
+        value = self._float(value)
+        if not normalized:
+            return -self.square_norm(value) / 2
+        log_prob = (-self.n_params / 2 * math.log(2 * math.pi)
+                    + self.log_det_posterior_precision / 2)
+        return log_prob - self.square_norm(value) / 2
 
     # ---- predictive
     @full_f32()
-    def __call__(self, x):
-        """GLM predictive with the probit link (reference
-        `baselaplace.py:913`, `:989`, link at `:307`): class probabilities (batch, classes)."""
-        f_mu, f_var = self._glm_predictive_distribution(x)
-        kappa = 1.0 / torch.sqrt(1.0 + math.pi / 8 * torch.diagonal(f_var, dim1=1, dim2=2))
-        return torch.softmax(kappa * f_mu, dim=-1)
+    def __call__(self, x, pred_type=PredType.GLM, joint: bool = False,
+                 link_approx=LinkApprox.PROBIT, n_samples: int = 100,
+                 diagonal_output: bool = False, generator: torch.Generator | None = None,
+                 fitting: bool = False):
+        """The posterior predictive (reference `baselaplace.py:913-947`):
+        class probabilities (batch, classes), or for regression `(f_mu,
+        f_var)` with f_var (batch, outputs, outputs), its diagonal with
+        `diagonal_output`, or with `joint` the (batch·outputs,)² covariance.
+        Reward modeling predicts as regression unless `fitting`."""
+        if pred_type not in [p for p in PredType]:
+            raise ValueError("Only glm and nn supported as prediction types.")
+        if link_approx not in [la for la in LinkApprox]:
+            raise ValueError(f"Unsupported link approximation {link_approx}.")
+        if pred_type == PredType.NN and link_approx != LinkApprox.MC:
+            raise ValueError("Only mc link approximation is supported for nn prediction type.")
+        likelihood = self.likelihood
+        if likelihood == Likelihood.REWARD_MODELING:
+            likelihood = Likelihood.CLASSIFICATION if fitting else Likelihood.REGRESSION
+        generator = self._rng(generator)
+        if pred_type == PredType.GLM:
+            f_mu, f_var = self._glm_predictive_distribution(
+                x, joint=joint and likelihood == Likelihood.REGRESSION)
+            return self._glm_link_output(f_mu, f_var, likelihood, joint, link_approx,
+                                         n_samples, diagonal_output, generator)
+        samples = self._nn_predictive_samples(x, n_samples, generator)
+        if likelihood == Likelihood.REGRESSION:
+            return samples.mean(0), samples.var(0, unbiased=False)
+        return samples.mean(0)
+
+    def _glm_link_output(self, f_mu, f_var, likelihood, joint, link_approx, n_samples,
+                         diagonal_output, generator):
+        """The link applied to the GLM predictive (reference
+        `baselaplace.py:307-352`)."""
+        if likelihood == Likelihood.REGRESSION:
+            if diagonal_output and not joint and f_var.ndim == 3:
+                f_var = torch.diagonal(f_var, dim1=-2, dim2=-1)
+            return f_mu, f_var
+        if link_approx == LinkApprox.MC:
+            return self._glm_predictive_samples(f_mu, f_var, n_samples, diagonal_output,
+                                                generator).mean(0)
+        if link_approx == LinkApprox.PROBIT:
+            kappa = 1.0 / torch.sqrt(1.0 + math.pi / 8 * torch.diagonal(f_var, dim1=1, dim2=2))
+            return torch.softmax(kappa * f_mu, dim=-1)
+        if "bridge" in link_approx:
+            # zero-mean correction, then the Laplace bridge
+            total = f_var.sum(dim=(1, 2))
+            f_mu = f_mu - f_var.sum(-1) * f_mu.sum(-1)[:, None] / total[:, None]
+            f_var = f_var - (torch.einsum("bi,bj->bij", f_var.sum(-1), f_var.sum(-2))
+                             / total[:, None, None])
+            K = f_mu.shape[-1]
+            f_var_diag = torch.diagonal(f_var, dim1=1, dim2=2)
+            if link_approx == LinkApprox.BRIDGE_NORM:
+                f_var_diag_mean = f_var_diag.mean(1) / math.sqrt(K / 2.0)
+                f_mu = f_mu / torch.sqrt(f_var_diag_mean)[:, None]
+                f_var_diag = f_var_diag / f_var_diag_mean[:, None]
+            sum_exp = torch.exp(-f_mu).sum(1)[:, None]
+            alpha = (1.0 - 2.0 / K + torch.exp(f_mu) / K ** 2 * sum_exp) / f_var_diag
+            return torch.nan_to_num(alpha / alpha.sum(1)[:, None], nan=1.0)
+        raise ValueError("Prediction path invalid. Check the likelihood, pred_type, "
+                         "link_approx combination!")
+
+    def _glm_functional_samples(self, f_mu, f_var, n_samples, diagonal_output=False,
+                                generator=None):
+        """Gaussian function samples (n_samples, batch, outputs) from the GLM
+        predictive."""
+        if f_var.ndim == 3 and diagonal_output:
+            f_var = torch.diagonal(f_var, dim1=1, dim2=2)
+        return normal_samples(f_mu, f_var, n_samples, self._rng(generator))
+
+    def _glm_predictive_samples(self, f_mu, f_var, n_samples, diagonal_output=False,
+                                generator=None):
+        """The function samples through the inverse link (the softmax unless
+        the likelihood is regression)."""
+        fs = self._glm_functional_samples(f_mu, f_var, n_samples, diagonal_output, generator)
+        if self.likelihood == Likelihood.REGRESSION:
+            return fs
+        return torch.softmax(fs, dim=-1)
+
+    @full_f32()
+    def functional_samples(self, x, pred_type=PredType.GLM, n_samples: int = 100,
+                           diagonal_output: bool = False,
+                           generator: torch.Generator | None = None) -> torch.Tensor:
+        """Function-space samples (n_samples, batch, outputs) (reference
+        `baselaplace.py:949-967`)."""
+        if pred_type not in [p for p in PredType]:
+            raise ValueError("Only glm and nn supported as prediction types.")
+        generator = self._rng(generator)
+        if pred_type == PredType.GLM:
+            f_mu, f_var = self._glm_predictive_distribution(x)
+            return self._glm_functional_samples(f_mu, f_var, n_samples, diagonal_output,
+                                                generator)
+        return self._nn_functional_samples(x, n_samples, generator)
 
     @full_f32()
     def predictive_samples(self, x, pred_type=PredType.GLM, n_samples: int = 100,
                            diagonal_output: bool = False,
                            generator: torch.Generator | None = None) -> torch.Tensor:
-        """Class-probability samples (n_samples, batch, classes): GLM
-        function samples through the softmax (reference
-        `baselaplace.py:969`, `:355-373`). The draws come from `generator`
-        (on this Laplace's device), or from torch's default one."""
-        if pred_type != PredType.GLM:
-            raise ValueError("Only the 'glm' predictive samples are ported.")
-        f_mu, f_var = self._glm_predictive_distribution(x, diagonal_output=diagonal_output)
-        return torch.softmax(normal_samples(f_mu, f_var, n_samples, generator), dim=-1)
+        """Samples (n_samples, batch, outputs) through the inverse link: GLM
+        function samples, or the network under posterior weight samples
+        (reference `baselaplace.py:969-987`)."""
+        if pred_type not in [p for p in PredType]:
+            raise ValueError("Only glm and nn supported as prediction types.")
+        generator = self._rng(generator)
+        if pred_type == PredType.GLM:
+            f_mu, f_var = self._glm_predictive_distribution(x)
+            return self._glm_predictive_samples(f_mu, f_var, n_samples, diagonal_output,
+                                                generator)
+        return self._nn_predictive_samples(x, n_samples, generator)
 
-    def _glm_predictive_distribution(self, x, diagonal_output: bool = False):
-        """GLM predictive mean f (batch, classes) and variance (batch,
-        classes, classes), or its diagonal (reference `baselaplace.py:989`)."""
-        Js, f_mu = self.backend._jacobians_dispatch(self._tensor(x))
-        with torch.no_grad():
+    def _glm_predictive_distribution(self, x, joint: bool = False,
+                                     diagonal_output: bool = False):
+        """GLM predictive mean f (batch, outputs) and variance (batch,
+        outputs, outputs) or its diagonal; with `joint`, f flattened and
+        the (batch·outputs)² covariance (reference `baselaplace.py:989`)."""
+        Js, f_mu = self.backend._jacobians_dispatch(self._tensor(x),
+                                                    create_graph=self.enable_backprop)
+        if joint:
+            f_mu = f_mu.reshape(-1)
+            f_var = self.functional_covariance(Js)
+        else:
             f_var = self.functional_variance(Js)
-        if diagonal_output:
-            f_var = torch.diagonal(f_var, dim1=-2, dim2=-1)
+            if diagonal_output:
+                f_var = torch.diagonal(f_var, dim1=-2, dim2=-1)
+        if not self.enable_backprop:
+            f_mu, f_var = f_mu.detach(), f_var.detach()
         return f_mu, f_var
+
+    def _nn_functional_samples(self, x, n_samples: int = 100, generator=None):
+        """The network's outputs (n_samples, batch, outputs) under posterior
+        weight samples (reference `baselaplace.py:1006-1020`)."""
+        samples = self.sample(n_samples, generator=generator)
+        x = self._tensor(x)
+        with torch.set_grad_enabled(self.enable_backprop):
+            fs = torch.stack([self.model.apply_vec(theta, x) for theta in samples])
+        return fs if self.enable_backprop else fs.detach()
+
+    def _nn_predictive_samples(self, x, n_samples: int = 100, generator=None):
+        fs = self._nn_functional_samples(x, n_samples, generator)
+        if self.likelihood == Likelihood.CLASSIFICATION:
+            fs = torch.softmax(fs, dim=-1)
+        return fs
 
     def functional_variance(self, Js) -> torch.Tensor:
         raise NotImplementedError
 
-    def sample(self, n_samples: int = 100, generator: torch.Generator | None = None):
-        """Parameter samples (n_samples, n_params) from the posterior."""
+    def functional_covariance(self, Js) -> torch.Tensor:
         raise NotImplementedError
 
-    def _randn(self, *shape, generator=None) -> torch.Tensor:
-        return torch.randn(*shape, generator=generator, dtype=self._dtype, device=self.device)
+    def sample(self, n_samples: int = 100, generator: torch.Generator | None = None):
+        """Parameter samples (n_samples, n_params) from the posterior."""
+        eps = torch.randn(n_samples, self.n_params, generator=self._rng(generator),
+                          dtype=self._dtype, device=self.device)
+        return self._samples_from(eps)
+
+    def _samples_from(self, eps: torch.Tensor) -> torch.Tensor:
+        """Posterior samples from standard-normal draws `eps` (n, n_params)."""
+        raise NotImplementedError
 
     def _check_fitted(self):
         if self.H is None:
             raise AttributeError("Laplace not fitted. Run fit() first.")
-
-    def _h_factor(self, sigma_noise):
-        return 1.0 / (sigma_noise ** 2) / self.temperature
 
 
 class KronLaplace(ParametricLaplace):
@@ -285,12 +561,13 @@ class KronLaplace(ParametricLaplace):
     _key = ("all", "kron")
 
     def __init__(self, model, likelihood, sigma_noise=1.0, prior_precision=1.0,
-                 prior_mean=0.0, temperature: float = 1.0, damping: bool = False,
-                 device=None):
+                 prior_mean=0.0, temperature: float = 1.0, enable_backprop: bool = False,
+                 dict_key_x: str = "input_ids", dict_key_y: str = "labels",
+                 damping: bool = False, device=None):
         self.damping = damping
         self.H_facs = None
-        super().__init__(model, likelihood, sigma_noise, prior_precision,
-                         prior_mean, temperature, device)
+        super().__init__(model, likelihood, sigma_noise, prior_precision, prior_mean,
+                         temperature, enable_backprop, dict_key_x, dict_key_y, device=device)
 
     def _curv_closure(self, x, y, N):
         return self.backend.kron(x, y, N)
@@ -340,8 +617,25 @@ class KronLaplace(ParametricLaplace):
         dflat = broadcast_groups(self.H._check_deltas(prior_precision), self.H.group_sizes)
         return torch.log(self._h_factor(sigma_noise) * self.H._flat_eigs + dflat).sum()
 
+    def square_norm(self, value) -> torch.Tensor:
+        """(θ − mean)ᵀ P (θ − mean); before the decomposition P is the prior
+        alone, as in the JAX package (`baselaplace.py:1310-1314`)."""
+        delta = value - self.mean
+        if not isinstance(self.H, KronDecomposed):
+            return (delta * self.prior_precision_diag) @ delta
+        return delta @ self.posterior_precision.bmm(delta, exponent=1)
+
     def functional_variance(self, Js) -> torch.Tensor:
         return self.posterior_precision.inv_square_form(Js)
+
+    def functional_covariance(self, Js) -> torch.Tensor:
+        B, C, P = Js.shape
+        return self.posterior_precision.inv_square_form(Js.reshape(1, B * C, P))[0]
+
+    def _samples_from(self, eps):
+        n = eps.shape[0]
+        return self.mean[None, :] + self.posterior_precision.bmm(eps, exponent=-0.5).reshape(
+            n, self.n_params)
 
     @BaseLaplace.prior_precision.setter
     def prior_precision(self, prior_precision):
@@ -355,7 +649,7 @@ class FullLaplace(ParametricLaplace):
 
     `H` is the summed GGN, built per batch by the `syrk` kernel on the card.
     The posterior scale (a Cholesky-based inverse square root) is cached
-    until the next fit or prior change.
+    until the next fit, prior or noise change.
     """
 
     _key = ("all", "full")
@@ -391,11 +685,18 @@ class FullLaplace(ParametricLaplace):
     def _log_det_posterior_precision(self, prior_precision, sigma_noise):
         return torch.linalg.slogdet(self._posterior_precision(prior_precision, sigma_noise))[1]
 
+    def square_norm(self, value) -> torch.Tensor:
+        delta = value - self.mean
+        return delta @ self.posterior_precision @ delta
+
     def functional_variance(self, Js) -> torch.Tensor:
         return torch.einsum("ncp,pq,nkq->nck", Js, self.posterior_covariance, Js)
 
-    def sample(self, n_samples: int = 100, generator: torch.Generator | None = None):
-        eps = self._randn(n_samples, self.n_params, generator=generator)
+    def functional_covariance(self, Js) -> torch.Tensor:
+        Jf = Js.reshape(-1, Js.shape[-1])
+        return torch.einsum("np,pq,mq->nm", Jf, self.posterior_covariance, Jf)
+
+    def _samples_from(self, eps):
         return self.mean[None, :] + eps @ self.posterior_scale.mT
 
 
@@ -426,9 +727,16 @@ class DiagLaplace(ParametricLaplace):
     def _log_det_posterior_precision(self, prior_precision, sigma_noise):
         return torch.log(self._posterior_precision(prior_precision, sigma_noise)).sum()
 
+    def square_norm(self, value) -> torch.Tensor:
+        delta = value - self.mean
+        return delta @ (delta * self.posterior_precision)
+
     def functional_variance(self, Js) -> torch.Tensor:
         return torch.einsum("ncp,p,nkp->nck", Js, self.posterior_variance, Js)
 
-    def sample(self, n_samples: int = 100, generator: torch.Generator | None = None):
-        eps = self._randn(n_samples, self.n_params, generator=generator)
+    def functional_covariance(self, Js) -> torch.Tensor:
+        Jf = Js.reshape(-1, Js.shape[-1])
+        return torch.einsum("np,p,mp->nm", Jf, self.posterior_variance, Jf)
+
+    def _samples_from(self, eps):
         return self.mean[None, :] + eps * self.posterior_scale[None, :]

@@ -1,7 +1,12 @@
 """Curvature backend (port of `laplace_jax/curvature/backend.py`: the exact
 GGN as a full matrix, its diagonal and its KFAC factors, and the per-sample
-Jacobians of the GLM predictive, for classification with the summed
-cross-entropy loss).
+Jacobians of the GLM predictive).
+
+Loss conventions, as in the JAX package: regression uses the summed
+squared error with factor 1/2, classification the summed cross-entropy with
+factor 1. So the regression GGN is JᵀJ (the Hessian of ½·SSE in f is I),
+its KFAC cotangent is √2·I with the factors then scaled by 1/2, and its
+diagonal carries no Λ.
 
 With `last_layer_path` set, the model's trainable leaves are the last
 Dense layer's, the Jacobians are the closed-form φ⊗I of that layer, and
@@ -13,8 +18,14 @@ from __future__ import annotations
 import torch
 
 from laplace_jax_torch.curvature.kfac import _sqrt_hessian_cotangents, kfac_factors
+from laplace_jax_torch.enums import Likelihood
+from laplace_jax_torch.nnmodel import batch_len, batch_slice
 from laplace_jax_torch.ops.syrk import syrk
 from laplace_jax_torch.utils.flatten import to_flax_layout
+
+
+def mse_sum(f: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    return ((f - y) ** 2).sum()
 
 
 def cross_entropy_sum(f: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -23,49 +34,68 @@ def cross_entropy_sum(f: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 
 class CurvatureBackend:
-    """Exact-Fisher (GGN) curvature and Jacobians for one `NNModel`."""
+    """Exact-Fisher (GGN) curvature and Jacobians for one `NNModel` and a
+    likelihood, 'classification' or 'regression'."""
 
-    def __init__(self, model, last_layer_path=None, feature_reduction=None):
+    def __init__(self, model, likelihood=Likelihood.CLASSIFICATION, last_layer_path=None,
+                 feature_reduction=None):
+        if likelihood not in (Likelihood.REGRESSION, Likelihood.CLASSIFICATION):
+            raise ValueError("Backend likelihood must be regression or classification.")
         self.model = model
+        self.likelihood = likelihood
         self.last_layer_path = last_layer_path
         self.feature_reduction = feature_reduction
+        if likelihood == Likelihood.REGRESSION:
+            self.lossfunc, self.factor = mse_sum, 0.5
+        else:
+            self.lossfunc, self.factor = cross_entropy_sum, 1.0
 
     def kron(self, x, y, N: int):
         """KFAC factors of one batch as a `Kron`, with the batch loss; the
         activation factor carries 1/N, so batches add."""
-        return kfac_factors(self.model, x, y, N, cross_entropy_sum, self.last_layer_path)
+        loss, kron = kfac_factors(self.model, x, y, N, self.lossfunc, self.last_layer_path,
+                                  self.likelihood)
+        return self.factor * loss, kron * self.factor
 
     def full(self, x, y, N: int = 1):
-        """The batch's dense GGN `H = MᵀM` (P, P), M = Λ^{1/2} J the
-        square-root-Hessian-weighted Jacobian rows (B*C, P), by the `syrk`
-        kernel; and the batch loss (reference `backend.py:366-403`)."""
+        """The batch's dense GGN `H = MᵀM` (P, P) by the `syrk` kernel, with
+        M (B*C, P) the Jacobian rows, weighted by Λ^{1/2} for
+        classification; and the batch loss (reference `backend.py:366-403`)."""
         Js, f = self._jacobians_dispatch(x)
         B, C, P = Js.shape
-        S = _sqrt_hessian_cotangents(f)  # (C, B, C)
-        M = torch.einsum("cbk,bkp->bcp", S, Js).reshape(B * C, P).contiguous()
-        return cross_entropy_sum(f, y), syrk(M)
+        if self.likelihood == Likelihood.REGRESSION:
+            M = Js.reshape(B * C, P)
+        else:
+            S = _sqrt_hessian_cotangents(f)  # (C, B, C)
+            M = torch.einsum("cbk,bkp->bcp", S, Js).reshape(B * C, P)
+        return self.factor * self.lossfunc(f, y), syrk(M.contiguous())
 
     def diag(self, x, y, N: int = 1):
         """The batch's GGN diagonal (P,) from the Jacobians, and the batch
         loss (reference `backend.py:451-463`)."""
         Js, f = self._jacobians_dispatch(x)
-        p = torch.softmax(f, dim=-1)
-        lam = torch.diag_embed(p) - p[:, :, None] * p[:, None, :]
-        return cross_entropy_sum(f, y), torch.einsum("bcp,bck,bkp->p", Js, lam, Js)
+        if self.likelihood == Likelihood.REGRESSION:
+            H = torch.einsum("bcp,bcp->p", Js, Js)
+        else:
+            p = torch.softmax(f, dim=-1)
+            lam = torch.diag_embed(p) - p[:, :, None] * p[:, None, :]
+            H = torch.einsum("bcp,bck,bkp->p", Js, lam, Js)
+        return self.factor * self.lossfunc(f, y), H
 
-    def _jacobians_dispatch(self, x):
+    def _jacobians_dispatch(self, x, create_graph: bool = False):
         """The closed-form last-layer Jacobians when a last layer is set,
-        else the full per-sample Jacobians."""
+        else the full per-sample Jacobians; with `create_graph` both stay
+        differentiable (in the input, for `enable_backprop`)."""
         if self.last_layer_path is not None:
-            return self.last_layer_jacobians(x)
-        return self.jacobians(x)
+            return self.last_layer_jacobians(x, create_graph)
+        return self.jacobians(x, create_graph)
 
-    def last_layer_jacobians(self, x):
+    def last_layer_jacobians(self, x, create_graph: bool = False):
         """Closed-form Jacobians (batch, outputs, P_ll) of the Dense last
         layer from its features φ: the bias block `I` first, then the
         input-major kernel block `J[b, c, i*C + o] = φ[b, i] δ_co`
         (reference `backend.py:209-238`); and f (batch, outputs)."""
-        with torch.no_grad():
+        with torch.set_grad_enabled(create_graph):
             f, phi = self.model.apply_with_features(x, self.last_layer_path,
                                                     self.feature_reduction)
         B, C = f.shape
@@ -75,7 +105,7 @@ class CurvatureBackend:
             Js = torch.cat([eye.expand(B, C, C), Js], dim=2)
         return Js, f
 
-    def jacobians(self, x):
+    def jacobians(self, x, create_graph: bool = False):
         """Per-sample Jacobians J (batch, outputs, n_params), columns in the
         canonical flat order, and f (batch, outputs).
 
@@ -84,14 +114,14 @@ class CurvatureBackend:
         params = self.model.params_in_order()
         rows = []
         with torch.enable_grad():
-            for b in range(x.shape[0]):
-                fb = self.model.apply(x[b : b + 1])[0]
+            for b in range(batch_len(x)):
+                fb = self.model.apply(batch_slice(x, slice(b, b + 1)))[0]
                 C = fb.shape[0]
                 eye = torch.eye(C, dtype=fb.dtype, device=fb.device)
                 gs = torch.autograd.grad(fb, params, grad_outputs=eye,
-                                         is_grads_batched=True)
+                                         is_grads_batched=True, create_graph=create_graph)
                 rows.append(torch.cat(
                     [to_flax_layout(g, lead=1).reshape(C, -1) for g in gs], 1))
-        with torch.no_grad():
+        with torch.set_grad_enabled(create_graph):
             f = self.model.apply(x)
         return torch.stack(rows), f

@@ -1,5 +1,5 @@
 """KFAC factors from layer taps (port of `laplace_jax/curvature/kfac.py`,
-exact Fisher of a classifier, Dense and Conv layers).
+exact Fisher, Dense and Conv layers).
 
 Normalization contract, as in the JAX package:
 
@@ -14,10 +14,12 @@ Normalization contract, as in the JAX package:
 
 from __future__ import annotations
 
+import math
 import warnings
 
 import torch
 
+from laplace_jax_torch.enums import Likelihood
 from laplace_jax_torch.ops.im2col import im2col
 from laplace_jax_torch.utils.matrix import Kron
 
@@ -32,25 +34,31 @@ def conv_patches(inputs: torch.Tensor, spec: dict) -> torch.Tensor:
     return p.reshape(p.shape[0], -1, p.shape[-1])
 
 
-def _sqrt_hessian_cotangents(f: torch.Tensor) -> torch.Tensor:
-    """Columns of S with S S^T = d^2(cross-entropy)/df^2 per sample,
-    shaped (C, B, C): diag(p) - p p^T = sum_c p_c (e_c - p)(e_c - p)^T, so
-    S[c, b, :] = sqrt(p[b, c]) (e_c - p[b])."""
-    eye = torch.eye(f.shape[1], dtype=f.dtype, device=f.device)
+def _sqrt_hessian_cotangents(f: torch.Tensor, likelihood=Likelihood.CLASSIFICATION) -> torch.Tensor:
+    """Columns of S with S S^T = d^2(sum loss)/df^2 per sample, shaped
+    (C, B, C). Classification: diag(p) - p p^T = sum_c p_c (e_c - p)(e_c -
+    p)^T, so S[c, b, :] = sqrt(p[b, c]) (e_c - p[b]). Regression: the summed
+    squared error's Hessian is 2 I, so S = sqrt(2) I (the backend then
+    scales the factors by its 1/2)."""
+    C = f.shape[1]
+    eye = torch.eye(C, dtype=f.dtype, device=f.device)
+    if likelihood == Likelihood.REGRESSION:
+        return (math.sqrt(2.0) * eye)[:, None, :].expand(C, f.shape[0], C).contiguous()
     p = torch.softmax(f, dim=-1)
     return p.T.sqrt()[:, :, None] * (eye[:, None, :] - p[None, :, :])
 
 
-def kfac_factors(model, x, y, N: int, lossfunc, last_layer_path=None):
-    """Per-batch exact-Fisher KFAC `Kron` of a classifier, and the batch
-    loss. With `last_layer_path`, only that layer is tapped (the model's
+def kfac_factors(model, x, y, N: int, lossfunc, last_layer_path=None,
+                 likelihood=Likelihood.CLASSIFICATION):
+    """Per-batch exact-Fisher KFAC `Kron` and the (unscaled) batch loss.
+    With `last_layer_path`, only that layer is tapped (the model's
     trainable leaves are then that layer's)."""
     paths = None if last_layer_path is None else {tuple(last_layer_path)}
     with torch.enable_grad():
         f, taps = model.apply_with_taps(x, paths)
         if not taps:
             raise ValueError("No Dense/Conv layers intercepted for KFAC.")
-        cot = _sqrt_hessian_cotangents(f.detach())
+        cot = _sqrt_hessian_cotangents(f.detach(), likelihood)
         # all C sweeps in one batched backward pass w.r.t. the zero offsets
         grads = torch.autograd.grad(
             f, [t.offset for t in taps], grad_outputs=cot, is_grads_batched=True

@@ -1,5 +1,6 @@
 """Last-layer Laplace approximations (port of `laplace_jax/lllaplace.py`,
-Dense heads).
+Dense heads), with the predictive surface of `baselaplace` (regression,
+links, joint, samples).
 
 The last layer is a parameter subset: the model keeps every weight in its
 forward, but only the last Dense layer's leaves are trainable
@@ -32,15 +33,16 @@ class LLLaplace(ParametricLaplace):
     """
 
     def __init__(self, model, likelihood, sigma_noise=1.0, prior_precision=1.0,
-                 prior_mean=0.0, temperature: float = 1.0,
+                 prior_mean=0.0, temperature: float = 1.0, enable_backprop: bool = False,
                  feature_reduction: FeatureReduction | str | None = None,
+                 dict_key_x: str = "input_ids", dict_key_y: str = "labels",
                  last_layer_name: str | None = None, device=None, **kwargs):
         if feature_reduction is not None and feature_reduction not in [
                 fr.value for fr in FeatureReduction]:
             raise ValueError("`feature_reduction` must take value in the `FeatureReduction "
                              "enum` or one of `{'pick_first', 'pick_last', 'average'}`!")
         super().__init__(model, likelihood, sigma_noise, 1.0, 0.0, temperature,
-                         device=device, **kwargs)
+                         enable_backprop, dict_key_x, dict_key_y, device=device, **kwargs)
         self._full_model = self.model
         self.feature_reduction = feature_reduction
         self.last_layer_path = None
@@ -58,7 +60,8 @@ class LLLaplace(ParametricLaplace):
         self.model = NNModel(self._full_model.module, trainable=trainable)
         self.n_params = self.model.n_params
         self.n_layers = self.model.n_layers
-        self.backend = CurvatureBackend(self.model, last_layer_path=path,
+        self.backend = CurvatureBackend(self.model, self._backend_likelihood,
+                                        last_layer_path=path,
                                         feature_reduction=self.feature_reduction)
         self.prior_precision, self.prior_mean = self._deferred_prior
         self.mean = self.prior_mean
@@ -70,30 +73,48 @@ class LLLaplace(ParametricLaplace):
             raise ValueError("Last-layer Laplace approximations do not support "
                              "`override=False`.")
         if self.last_layer_path is None:
-            X, _ = next(iter(train_loader))
+            X, _ = self._unpack_batch(next(iter(train_loader)))
             self._set_last_layer(self._full_model.find_last_layer(self._tensor(X)))
         super().fit(train_loader, override=True)
 
     def _features(self, x):
-        with torch.no_grad():
+        with torch.set_grad_enabled(self.enable_backprop):
             return self.model.apply_with_features(self._tensor(x), self.last_layer_path,
                                                   self.feature_reduction)
 
     def _has_bias(self) -> bool:
         return any(s.path[-1] == "bias" for s in self.model.leaf_specs)
 
-    def _glm_predictive_distribution(self, x, diagonal_output: bool = False):
-        """The GLM predictive; the diagonal comes from
+    def _glm_predictive_distribution(self, x, joint: bool = False,
+                                     diagonal_output: bool = False):
+        """The GLM predictive; without `joint`, the diagonal comes from
         `functional_variance_fast` (reference `lllaplace.py:212-237`)."""
-        if diagonal_output:
-            return self.functional_variance_fast(x)
-        return super()._glm_predictive_distribution(x)
+        if diagonal_output and not joint:
+            f_mu, f_var = self.functional_variance_fast(x)
+            if not self.enable_backprop:
+                f_mu, f_var = f_mu.detach(), f_var.detach()
+            return f_mu, f_var
+        return super()._glm_predictive_distribution(x, joint=joint)
 
     def functional_variance_fast(self, x):
         """f (batch, classes) and the diagonal output variance (batch,
         classes); the flavors below compute it without the Jacobians."""
         f_mu, f_var = super()._glm_predictive_distribution(x)
         return f_mu, torch.diagonal(f_var, dim1=-2, dim2=-1)
+
+    def _nn_functional_samples(self, x, n_samples: int = 100, generator=None):
+        """Sampled last-layer outputs (n_samples, batch, outputs): the
+        features once, then the Dense head under each posterior sample of
+        its (bias, input-major kernel) leaves (reference `lllaplace.py:179-208`)."""
+        _, phi = self._features(x)
+        samples = self.sample(n_samples, generator=generator)
+        d, k = next(s.shape for s in self.model.leaf_specs if s.path[-1] == "kernel")
+        bias, W = ((samples[:, :k], samples[:, k:]) if self._has_bias()
+                   else (None, samples))
+        fs = torch.einsum("...d,sdk->s...k", phi, W.reshape(-1, d, k))
+        if bias is not None:
+            fs = fs + bias.reshape((-1,) + (1,) * (fs.ndim - 2) + (k,))
+        return fs if self.enable_backprop else fs.detach()
 
 
 class FullLLLaplace(LLLaplace, FullLaplace):

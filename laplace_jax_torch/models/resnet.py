@@ -23,26 +23,30 @@ import torch.nn.functional as F
 from torch import nn
 
 from laplace_jax_torch.ops.im2col import pad_input
+from laplace_jax_torch.utils.flatten import from_flax_layout
 
-__all__ = ["Conv", "ResidualBlock", "ResNet", "ResNet18", "state_dict_from_flax"]
+__all__ = ["Conv", "ResidualBlock", "ResNet", "ResNet18", "init_conv", "state_dict_from_flax"]
 
 
 class Conv(nn.Module):
-    """flax `nn.Conv(features, (k, k), strides, padding='SAME', use_bias=False)`
-    on NCHW tensors."""
+    """flax `nn.Conv(features, (k, k), strides, padding='SAME', use_bias=...)`
+    on NCHW tensors (no bias by default, as the ResNet's convs). A bias is
+    the flax leaf `bias`, zero at initialization, and its own KFAC group
+    `(B,)`."""
 
     def __init__(self, c_in: int, c_out: int, kernel_size: int, strides: int = 1,
-                 init_scale: float = 1.0):
+                 init_scale: float = 1.0, use_bias: bool = False):
         super().__init__()
         self.kernel_size = (kernel_size, kernel_size)
         self.strides = (strides, strides)
         self.padding = "SAME"
         self.init_scale = init_scale  # variance_scaling(scale, fan_in, truncated)
         self.weight = nn.Parameter(torch.empty(c_out, c_in, kernel_size, kernel_size))
+        self.bias = nn.Parameter(torch.zeros(c_out)) if use_bias else None
 
     def forward(self, x):
         x = pad_input(x, self.kernel_size, self.strides, self.padding)
-        return F.conv2d(x, self.weight, stride=self.strides)
+        return F.conv2d(x, self.weight, self.bias, stride=self.strides)
 
 
 class ResidualBlock(nn.Module):
@@ -85,8 +89,7 @@ class ResNet(nn.Module):
         for the kernels (he_normal is scale 2), zero dense bias."""
         for m in self.modules():
             if isinstance(m, Conv):
-                fan_in = m.weight[0].numel()
-                _trunc_normal(m.weight, math.sqrt(m.init_scale / fan_in), generator)
+                init_conv(m, generator)
         _trunc_normal(self.Dense_0.weight,
                       math.sqrt(1.0 / self.Dense_0.in_features), generator)
         self.Dense_0.bias.zero_()
@@ -101,6 +104,16 @@ class ResNet(nn.Module):
 def ResNet18(num_classes: int = 10, width: int = 64,
              generator: torch.Generator | None = None) -> ResNet:
     return ResNet((2, 2, 2, 2), num_classes, width, generator)
+
+
+def init_conv(m: Conv, generator: torch.Generator | None = None) -> None:
+    """flax's initializers for a `Conv`: truncated-normal variance scaling
+    on fan-in for the kernel (`init_scale` 1 is lecun_normal, 2 he_normal),
+    a zero bias."""
+    with torch.no_grad():
+        _trunc_normal(m.weight, math.sqrt(m.init_scale / m.weight[0].numel()), generator)
+        if m.bias is not None:
+            m.bias.zero_()
 
 
 def _trunc_normal(t, std, generator):
@@ -123,7 +136,7 @@ def state_dict_from_flax(params: Mapping) -> dict:
                 continue
             a = torch.as_tensor(np.array(val))
             if key == "kernel":
-                a = a.permute(3, 2, 0, 1) if a.ndim == 4 else a.T
+                a = from_flax_layout(a)
                 key = "weight"
             out[".".join(prefix + (key,))] = a.contiguous()
 

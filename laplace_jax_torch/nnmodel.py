@@ -17,14 +17,14 @@ parameters whose module path is exactly that path.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Mapping, Optional
 
 import torch
 from torch import nn
 
 from laplace_jax_torch.enums import FeatureReduction
 from laplace_jax_torch.models.resnet import Conv
-from laplace_jax_torch.utils.flatten import leaf_specs, parameters_to_vector
+from laplace_jax_torch.utils.flatten import leaf_specs, parameters_to_vector, vector_to_parameters
 
 
 @dataclass
@@ -36,6 +36,29 @@ class LayerTap:
     inputs: torch.Tensor  # layer input (NCHW for convs)
     offset: torch.Tensor  # zero added to the output, requiring grad
     spec: Optional[dict] = None  # conv: kernel_size, strides, padding, dilation
+
+
+def batch_len(x) -> int:
+    """The batch size of an input, or of a dict input's first tensor."""
+    if isinstance(x, Mapping):
+        x = next(v for v in x.values() if torch.is_tensor(v))
+    return x.shape[0]
+
+
+def batch_slice(x, sl: slice):
+    """Rows `sl` of an input; a dict input keeps its non-tensor entries."""
+    if isinstance(x, Mapping):
+        return {k: v[sl] if torch.is_tensor(v) else v for k, v in x.items()}
+    return x[sl]
+
+
+def unpack_batch(data, dict_key_y: str):
+    """(X, y) from a pair, or from a dict batch, which is itself X and holds
+    y under `dict_key_y` (reference `baselaplace.py:969-974`)."""
+    if isinstance(data, Mapping):
+        return data, data[dict_key_y]
+    X, y = data
+    return X, y
 
 
 def _module_path(name: str) -> tuple:
@@ -90,6 +113,12 @@ class NNModel:
     def apply(self, x):
         return self.module(x)
 
+    def apply_vec(self, theta: torch.Tensor, x):
+        """The forward with the trainable leaves taken from the flat vector
+        `theta` (canonical order, flax layout); the other leaves as they are."""
+        return torch.func.functional_call(self.module,
+                                          vector_to_parameters(theta, self.leaf_specs), (x,))
+
     def apply_with_taps(self, x, paths=None):
         """Forward pass returning `(f, taps)`, taps in execution order; each
         tapped output gets `+ zeros` requiring grad. With `paths` (a set of
@@ -127,7 +156,7 @@ class NNModel:
         (reference `baselaplace.py:947-951` probes the same way). Heads of
         other kinds are not ported."""
         with torch.no_grad():
-            _, taps = self.apply_with_taps(x[:1])
+            _, taps = self.apply_with_taps(batch_slice(x, slice(0, 1)))
         dense = [t.path for t in taps if t.kind == "dense"]
         if not dense:
             raise ValueError("No Dense layer found for last-layer Laplace (non-Dense "

@@ -25,7 +25,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["tridiagonalize", "apply_q", "panel_plain", "tridiagonalize_windows"]
+__all__ = ["tridiagonalize", "apply_q", "panel_plain", "panel_residual",
+           "tridiagonalize_windows"]
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -98,6 +99,57 @@ def panel_plain(Aw, off: int, q_base: int, n_real: int, nb: int, matvec=None):
         W[:, j] = w
         det[:, 0, j], det[:, 1, j], det[:, 2, j] = d_val, e_val, tau
     return UW, det
+
+
+def panel_residual(Aw, off: int, q_base: int, n_real: int, nb: int, UW, det) -> torch.Tensor:
+    """How far one panel's outputs `(UW, det)` are from satisfying the
+    contract's recurrences on `Aw`, per matrix, evaluated in float64 from
+    the outputs themselves (column c corrected by their own earlier U, W).
+    The largest of, over the panel's columns:
+
+    - `|d_c - col_c[c]|`, `max |H_c x_c - e_c e_{c+1}|` (x_c: col_c below
+      row c) and `max |w_c - w(v_c, tau_c)|`, each over `max |Aw|`;
+    - `|tau_c v_c^T v_c / 2 - 1|` where `tau_c != 0` (a reflector);
+    - `|v_c[c+1] - 1|`, and any entry of `v_c` or `w_c` where the contract
+      has an exact zero.
+
+    A correct float32 panel is within a few `m * eps` of zero here whatever
+    the window's conditioning; its forward error against the exact panel is
+    not, where the window's columns are nearly deflated."""
+    A = Aw.double()
+    K, m, _ = A.shape
+    U, W = UW[:, :nb].double(), UW[:, nb:].double()
+    d, e, tau = det.double().unbind(1)
+    rows = torch.arange(m, device=A.device)
+    valid = rows < n_real - q_base
+    scale = torch.where(valid[:, None] & valid[None, :], A, 0.0).abs().amax((1, 2))
+    scale = scale.clamp(min=torch.finfo(torch.float64).tiny)
+    res = torch.zeros(K, dtype=torch.float64, device=A.device)
+    for j in range(nb):
+        c = off + j
+        ok = c + q_base < n_real - 2
+        Uj, Wj = U[:, :j], W[:, :j]
+        col = A[:, c] - torch.einsum("kq,kqi->ki", Uj[:, :, c], Wj) \
+            - torch.einsum("kq,kqi->ki", Wj[:, :, c], Uj)
+        col = torch.where(valid, col, 0.0)
+        below = rows > c
+        v, w, t = U[:, j], W[:, j], tau[:, j]
+        x = torch.where(below, col, 0.0)
+        hx = x - (t * (v * x).sum(1))[:, None] * v - e[:, j, None] * (rows == c + 1)
+        Av = torch.where(below, (A @ v[:, :, None])[:, :, 0], 0.0) \
+            - torch.einsum("kq,kqi->ki", (Wj * v[:, None]).sum(2), Uj) \
+            - torch.einsum("kq,kqi->ki", (Uj * v[:, None]).sum(2), Wj)
+        w_ref = t[:, None] * Av
+        w_ref = torch.where(below, w_ref - (0.5 * t * (w_ref * v).sum(1))[:, None] * v, 0.0)
+        zero_v = ~below | ~valid if ok else torch.ones_like(below)
+        terms = [(d[:, j] - col[:, c]).abs() / scale, hx.abs().amax(1) / scale,
+                 (w - w_ref).abs().amax(1) / scale,
+                 torch.where(t != 0, (t * (v * v).sum(1) / 2 - 1).abs(), 0.0),
+                 torch.where(zero_v, v, 0.0).abs().amax(1)]
+        if ok:
+            terms.append((v[:, c + 1] - 1).abs())
+        res = torch.maximum(res, torch.stack(terms).amax(0))
+    return res
 
 
 def tridiagonalize_windows(A: torch.Tensor, nb: int, S: int, panel):

@@ -3,13 +3,15 @@
 Entry points run on the card unless the caller asks for the CPU: with no
 device given they take `cuda`, and they raise when there is none. Nothing
 falls back to the CPU silently. `full_f32` scopes the float32 precision
-settings to the port's own heavy calls.
+settings to the port's own heavy calls; `to_device` moves a batch.
 """
 
 from __future__ import annotations
 
 from contextlib import contextmanager
+from typing import Mapping
 
+import numpy as np
 import torch
 
 
@@ -23,6 +25,18 @@ def resolve_device(device=None) -> torch.device:
             "CPU explicitly."
         )
     return dev
+
+
+def to_device(x, device, dtype):
+    """An input on `device`: floating arrays and tensors in `dtype`, integer
+    ones as they are, a dict entry by entry; entries that are not arrays
+    (strings, None) stay as they are."""
+    if isinstance(x, Mapping):
+        return {k: to_device(v, device, dtype) for k, v in x.items()}
+    if not isinstance(x, (torch.Tensor, np.ndarray, np.generic, int, float, list, tuple)):
+        return x
+    t = torch.as_tensor(x, device=device)
+    return t.to(dtype) if t.is_floating_point() else t
 
 
 def _precision_knobs() -> list:

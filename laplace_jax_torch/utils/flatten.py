@@ -50,6 +50,15 @@ def to_flax_layout(t: torch.Tensor, lead: int = 0) -> torch.Tensor:
     return t
 
 
+def from_flax_layout(t: torch.Tensor) -> torch.Tensor:
+    """Flax layout -> torch weight layout (the inverse of `to_flax_layout`)."""
+    if t.ndim == 4:
+        return t.permute(3, 2, 0, 1)
+    if t.ndim == 2:
+        return t.T
+    return t
+
+
 def leaf_specs(module: nn.Module, trainable=None) -> list[LeafSpec]:
     """Trainable parameters in canonical (sorted flax path) order; with
     `trainable` (a set of torch parameter names), only those."""
@@ -66,10 +75,17 @@ def leaf_specs(module: nn.Module, trainable=None) -> list[LeafSpec]:
     return specs
 
 
-def parameters_to_vector(module: nn.Module, specs=None) -> torch.Tensor:
-    """The flat parameter vector in canonical order and flax layout."""
+def parameters_to_vector(module: nn.Module, specs=None, detach: bool = True) -> torch.Tensor:
+    """The flat parameter vector in canonical order and flax layout; with
+    `detach=False` it stays in the parameters' graph."""
     specs = leaf_specs(module) if specs is None else specs
     params = dict(module.named_parameters())
-    return torch.cat(
-        [to_flax_layout(params[s.name].detach()).reshape(-1) for s in specs]
-    )
+    return torch.cat([to_flax_layout(params[s.name].detach() if detach else params[s.name])
+                      .reshape(-1) for s in specs])
+
+
+def vector_to_parameters(theta: torch.Tensor, specs) -> dict:
+    """A flat vector in canonical order as {torch parameter name: tensor in
+    torch layout} over the leaves of `specs` (for `torch.func.functional_call`)."""
+    return {s.name: from_flax_layout(theta[s.offset : s.offset + s.size].reshape(s.shape))
+            for s in specs}

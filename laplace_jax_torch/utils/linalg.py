@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -29,6 +30,32 @@ def invsqrt_precision(M: torch.Tensor) -> torch.Tensor:
     L_inv = torch.flip(Lf, (-2, -1)).mT  # lower triangular
     eye = torch.eye(M.shape[-1], dtype=M.dtype, device=M.device)
     return torch.linalg.solve_triangular(L_inv, eye, upper=False)
+
+
+def kron(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Kronecker product."""
+    return torch.kron(A, B)
+
+
+def block_diag(blocks) -> torch.Tensor:
+    """Block-diagonal matrix from square blocks."""
+    return torch.block_diag(*blocks)
+
+
+def diagonal_add_scalar(X: torch.Tensor, value) -> torch.Tensor:
+    """`X` plus `value` on its diagonal."""
+    return X + value * torch.eye(X.shape[0], dtype=X.dtype, device=X.device)
+
+
+def is_valid_scalar(scalar) -> bool:
+    """True for Python and numpy real scalars and for 0-dim or one-element
+    1-dim arrays and tensors."""
+    if isinstance(scalar, (int, float)) or (
+            isinstance(scalar, np.generic) and np.isreal(scalar)):
+        return True
+    if isinstance(scalar, (torch.Tensor, np.ndarray)):
+        return scalar.ndim == 0 or (scalar.ndim == 1 and scalar.shape[0] == 1)
+    return False
 
 
 def normal_samples_from(mean: torch.Tensor, var: torch.Tensor,

@@ -20,6 +20,7 @@ retry.
 
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import torch
@@ -27,7 +28,7 @@ import torch
 from laplace_jax_torch.ops.eigh_dc import eigh_pooled_dc
 from laplace_jax_torch.ops.tridiag_eig import eigh_stack_ts
 from laplace_jax_torch.utils.device import full_f32
-from laplace_jax_torch.utils.linalg import symeig
+from laplace_jax_torch.utils.linalg import block_diag, kron, symeig
 
 __all__ = ["Kron", "KronDecomposed"]
 
@@ -101,6 +102,27 @@ class Kron:
     def __init__(self, kfacs: Sequence[Sequence[torch.Tensor]]):
         self.kfacs = tuple(tuple(F) for F in kfacs)
 
+    @classmethod
+    def init_from_params(cls, params, dtype=None, device=None) -> "Kron":
+        """Zero factors shaped from parameter leaves in canonical order and
+        flax layout (tensors or shapes): a leaf of at most one dim is the
+        group ``(F,)``, any other the group ``(A, B)`` over ``prod(lead)``
+        and its last dim."""
+        kfacs = []
+        for p in params:
+            shape = tuple(p.shape) if hasattr(p, "shape") else tuple(p)
+            dt = dtype or getattr(p, "dtype", None) or torch.get_default_dtype()
+            dev = device if device is not None else getattr(p, "device", None)
+            size = math.prod(shape)
+            if len(shape) <= 1:
+                P = max(size, 1)
+                kfacs.append((torch.zeros(P, P, dtype=dt, device=dev),))
+            else:
+                p_in, p_out = size // shape[-1], shape[-1]
+                kfacs.append((torch.zeros(p_in, p_in, dtype=dt, device=dev),
+                              torch.zeros(p_out, p_out, dtype=dt, device=dev)))
+        return cls(kfacs)
+
     def __add__(self, other: "Kron") -> "Kron":
         if not isinstance(other, Kron):
             raise ValueError("Can only add Kron to Kron.")
@@ -115,6 +137,60 @@ class Kron:
     @property
     def group_sizes(self) -> list[int]:
         return _group_sizes(self.kfacs)
+
+    def _bmm(self, W: torch.Tensor) -> torch.Tensor:
+        """`H @ W` for W (batch, classes, params)."""
+        B, K, P = W.shape
+        W = W.reshape(B * K, P)
+        cur, out = 0, []
+        for F in self.kfacs:
+            if len(F) == 1:
+                p = F[0].shape[0]
+                out.append(W[:, cur : cur + p] @ F[0].T)
+            else:
+                A, Bf = F
+                p_in, p_out = A.shape[0], Bf.shape[0]
+                p = p_in * p_out
+                W_p = W[:, cur : cur + p].reshape(B * K, p_in, p_out)
+                # (A kron B) vec(W) = vec(A W B^T)
+                out.append(torch.einsum("ij,bjo,po->bip", A, W_p, Bf).reshape(B * K, p))
+            cur += p
+        return torch.cat(out, 1).reshape(B, K, P)
+
+    def bmm(self, W: torch.Tensor, exponent: float = 1) -> torch.Tensor:
+        """`H @ W` for W (params,), (batch, params) or (batch, classes,
+        params); other exponents need the decomposition."""
+        if exponent != 1:
+            raise ValueError("Only supported after decomposition.")
+        if W.ndim == 1:
+            return self._bmm(W[None, None]).reshape(-1)
+        if W.ndim == 2:
+            return self._bmm(W[:, None]).squeeze(1)
+        if W.ndim == 3:
+            return self._bmm(W)
+        raise ValueError("Invalid shape for W")
+
+    def logdet(self) -> torch.Tensor:
+        """Log determinant of the block-diagonal matrix."""
+        ld = 0.0
+        for F in self.kfacs:
+            if len(F) == 1:
+                ld = ld + torch.linalg.slogdet(F[0])[1]
+            else:
+                A, B = F
+                ld = ld + B.shape[0] * torch.linalg.slogdet(A)[1]
+                ld = ld + A.shape[0] * torch.linalg.slogdet(B)[1]
+        return torch.as_tensor(ld)
+
+    def diag(self) -> torch.Tensor:
+        """Diagonal of the block-diagonal matrix."""
+        return torch.cat([torch.diagonal(F[0]) if len(F) == 1 else
+                          torch.outer(torch.diagonal(F[0]), torch.diagonal(F[1])).reshape(-1)
+                          for F in self.kfacs])
+
+    def to_matrix(self) -> torch.Tensor:
+        """The dense block-diagonal matrix (for tests)."""
+        return block_diag([F[0] if len(F) == 1 else kron(F[0], F[1]) for F in self.kfacs])
 
     @full_f32()
     def decompose(self, damping: bool = False) -> "KronDecomposed":
@@ -263,3 +339,28 @@ class KronDecomposed:
     def inv_square_form(self, W: torch.Tensor) -> torch.Tensor:
         """`W H^{-1} W^T` batched over the leading axis."""
         return torch.einsum("bkp,blp->bkl", W, self._bmm(W, exponent=-1))
+
+    def diag(self, exponent: float = 1) -> torch.Tensor:
+        """Diagonal of `H^e`."""
+        diags = []
+        for Qs, ls, delta in zip(self.eigenvectors, self.eigenvalues, self.deltas):
+            if len(ls) == 1:
+                Q, l = Qs[0], ls[0]
+                diags.append(torch.einsum("mp,p,mp->m", Q, (l + delta) ** exponent, Q))
+            else:
+                QA, QB = Qs
+                eig = self._group_eig(ls, delta, exponent)
+                diags.append(torch.einsum("mp,nq,pq->mn", QA ** 2, QB ** 2, eig).reshape(-1))
+        return torch.cat(diags)
+
+    def to_matrix(self, exponent: float = 1) -> torch.Tensor:
+        """The dense `H^e` (for tests)."""
+        blocks = []
+        for Qs, ls, delta in zip(self.eigenvectors, self.eigenvalues, self.deltas):
+            if len(ls) == 1:
+                Q, l = Qs[0], ls[0]
+                blocks.append(Q @ torch.diag((l + delta) ** exponent) @ Q.T)
+            else:
+                Q = kron(Qs[0], Qs[1])
+                blocks.append(Q @ torch.diag(self._group_eig(ls, delta, exponent).reshape(-1)) @ Q.T)
+        return block_diag(blocks)

@@ -7,6 +7,21 @@ import torch
 from laplace_jax_torch.enums import PriorStructure
 
 
+def expand_prior_precision_sizes(prior_prec: torch.Tensor, leaf_sizes) -> torch.Tensor:
+    """A scalar, per-leaf or diagonal prior precision as a (P,) diagonal over
+    leaves of `leaf_sizes` in canonical order; differentiable in
+    `prior_prec` (the marglik hyperparameter steps rely on it)."""
+    P = sum(leaf_sizes)
+    prior_prec = torch.atleast_1d(prior_prec)
+    if prior_prec.shape[0] == 1:
+        return prior_prec.expand(P)
+    if prior_prec.shape[0] == P:
+        return prior_prec
+    if prior_prec.shape[0] == len(leaf_sizes):
+        return torch.cat([prior_prec[i].expand(n) for i, n in enumerate(leaf_sizes)])
+    raise ValueError("Mismatch of prior and model. Diagonal, scalar, or per-layer prior.")
+
+
 def fix_prior_prec_structure(prior_prec_init: float, prior_structure,
                              n_layers: int, n_params: int,
                              dtype=torch.float32, device=None) -> torch.Tensor:

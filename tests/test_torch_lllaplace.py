@@ -172,8 +172,12 @@ def test_predictive_samples_use_the_generator(fitted, pair):
     assert a.shape == (5, 3, 10)
     torch.testing.assert_close(a, b, rtol=0, atol=0)
     torch.testing.assert_close(a.sum(-1), torch.ones(5, 3, dtype=a.dtype), rtol=0, atol=1e-12)
+    nn = tla.predictive_samples(X, pred_type="nn", n_samples=5,
+                                generator=torch.Generator().manual_seed(1))
+    assert nn.shape == (5, 3, 10)
+    torch.testing.assert_close(nn.sum(-1), torch.ones(5, 3, dtype=nn.dtype), rtol=0, atol=1e-12)
     with pytest.raises(ValueError, match="glm"):
-        tla.predictive_samples(X, pred_type="nn")
+        tla.predictive_samples(X, pred_type="bogus")
 
 
 def test_ll_equals_full_laplace_on_frozen_backbone(pair):
