@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (`laplace_jax_torch`) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed 0] [--window-study SEEDS]
+    python3 chip_smoke.py [--seed 0] [--window-study SEEDS] [--gp-subnet-repeats N]
 
 Phases, each printing one JSON line; any failed check exits non-zero:
 
@@ -100,14 +100,42 @@ Phases, each printing one JSON line; any failed check exits non-zero:
              KronLL (Gaussian NLL on 128 validation targets drawn from the
              predictive at the grid's middle, the default grid of 100; its
              choice against the argmin of the scores taken outside it; and
-             one with the default MSE score, a grid value back), each timed.
+             one with the default MSE score, a grid value back), each timed;
+10. functional - `bench.py`'s `gp_fit_predict` at full size:
+             `FunctionalLaplace` on LeNet (28x28x1, 10 classes, 107,786
+             weights) over 2048 inputs, batch 128, an SoD of 512, float32:
+             the auto rule must stream (a 2.21 GB Jacobian cache); warm-up,
+             then `gp_fit_sec` and `gp_predict_sec` (`la(x[:64])`); the
+             streamed fit's parts timed alone (`gp_fit_parts`: first pass,
+             Jacobians, K_MM's products, the cached Gram, Σ's Cholesky, one
+             batch's Jacobians under the profiler); a fit
+             with `streaming=False` against the streamed one (K_MM, Σ's
+             Cholesky, the probit, the marglik); a gridsearch of 21 values
+             (NLL on 128 validation labels drawn from the predictive at the
+             grid's middle; its choice against the argmin of the scores
+             taken outside it); `independent_outputs=True` (its
+             kernels against the full K_MM's class blocks) and
+             `FunctionalLLLaplace`; no kernel may launch; a float64 fit at
+             an SoD of 64 on the card against the CPU;
+11. subnet - `bench.py` config 3b at full size: BenchCNN on 256
+             CIFAR-10-shaped inputs, batch 64, float32, the 128 largest
+             weights (`LargestMagnitudeSubnetMask`) into
+             `Laplace(..., "subnetwork", "full")`: a warm-up fit with every
+             syrk launch's M and H recorded (H against `syrk_plain`,
+             exactly symmetric, their sum the fit's H), then the timed fit
+             (`subnet_full_fit_sec`) with its 4 syrk launches, and its
+             Jacobians timed alone (`subnet_fit_parts`); syrk timed at
+             (640, 128) (`at_640x128` on the kernel line); the GLM probit
+             and the marglik; `DiagSubnetLaplace` against the full H's
+             diagonal; the DiagLaplace and SWAG variance masks timed; a
+             float64 fit on the card against the CPU.
 The `last_layer` phase also runs the bridge, bridge_norm and MC links on
 its KronLL (rows sum to 1).
 
 Then the kernel summary line (with `main_path_ms`, `route_ms`,
 `stream_bound_ms` and v2's `ms_3x4608` where measured, and
-`launches_by_path`: each kernel's launches on the marglik_training and
-regression paths), the `nvidia-smi` line, and last
+`launches_by_path`: each kernel's launches on the marglik_training,
+regression and subnet paths), the `nvidia-smi` line, and last
 `{"ok": true, "device": {...}}`. Without a CUDA device, or outside the
 repository checkout, it exits non-zero and prints no result.
 
@@ -126,6 +154,7 @@ import re
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
@@ -199,6 +228,45 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def rel_err(got, ref) -> float:
+    """max |got - ref| / max |ref|, in float64."""
+    got, ref = got.double().cpu(), ref.double().cpu()
+    return float((got - ref).abs().max() / ref.abs().max())
+
+
+def port_kernels() -> tuple:
+    """The five kernel wrappers, each carrying its launch count."""
+    from laplace_jax_torch.ops.latrd import latrd_panel
+    from laplace_jax_torch.ops.latrd_v2 import latrd_panel_v2
+    from laplace_jax_torch.ops.latrd_v3 import latrd_panel_v3
+    from laplace_jax_torch.ops.latrd_v4 import latrd_panel_v4
+    from laplace_jax_torch.ops.syrk import syrk
+
+    return latrd_panel, latrd_panel_v4, latrd_panel_v3, latrd_panel_v2, syrk
+
+
+def kernel_launches(*names) -> dict:
+    """The launch counts of the named kernels (all five with no names)."""
+    return {k.__name__: k.launches for k in port_kernels() if not names or k.__name__ in names}
+
+
+def zero_launches() -> None:
+    for k in port_kernels():
+        k.launches = 0
+
+
+def timed(res, name, fn):
+    """`fn()`, with its seconds (host clock, synchronized) in `res[name]`."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    res[name] = time.perf_counter() - t0
+    return out
 
 
 def sym_stack(K: int, n: int, gen, device, dtype):
@@ -591,46 +659,37 @@ def main_path(seed, device):
     import torch
 
     from laplace_jax_torch import KronLaplace
-    from laplace_jax_torch.ops.latrd import latrd_panel
-    from laplace_jax_torch.ops.latrd_v4 import latrd_panel_v4
     from laplace_jax_torch.utils import matrix
 
     net, loader, X_test = full_width(seed)
+    res = dict(phase="main", model="ResNet18(width=64, num_classes=10)", n_data=512, batch=128,
+               dtype="float32")
     la = KronLaplace(net, "classification", device=device)
     torch.cuda.reset_peak_memory_stats()
-    latrd_panel.launches = latrd_panel_v4.launches = 0
+    zero_launches()
     retries0 = matrix.SYMEIG_RETRIES
     flags0 = tf32_flags()
-    t0 = time.perf_counter()
     with PanelTally() as tally:
-        la.fit(loader)
-    fit_s = time.perf_counter() - t0
+        timed(res, "fit_s", lambda: la.fit(loader))
     flags_after_fit = tf32_flags()
-    launches = {"latrd_panel": latrd_panel.launches, "latrd_panel_v4": latrd_panel_v4.launches}
+    launches = kernel_launches(*MAIN_LAUNCHES)
     retries = matrix.SYMEIG_RETRIES - retries0
     lml = float(la.log_marginal_likelihood())
     sizes = sorted({int(H.shape[0]) for F in la.H_facs.kfacs for H in F})
     worst = kernel_eig_err(la)
 
-    t0 = time.perf_counter()
-    la.optimize_prior_precision(method="marglik", n_steps=100)
-    torch.cuda.synchronize()
-    marglik_s = time.perf_counter() - t0
+    timed(res, "marglik_100_steps_s", lambda: la.optimize_prior_precision(method="marglik",
+                                                                          n_steps=100))
     pp = float(la.prior_precision[0])
-
-    t0 = time.perf_counter()
-    probs = la(X_test[:8])
-    torch.cuda.synchronize()
-    pred_s = time.perf_counter() - t0
+    probs = timed(res, "predictive_s", lambda: la(X_test[:8]))
     row_err = float((probs.sum(-1) - 1).abs().max())
     flags_after = tf32_flags()
 
-    res = dict(phase="main", model="ResNet18(width=64, num_classes=10)", n_params=la.n_params,
-               n_data=512, batch=128, dtype="float32", fit_s=fit_s,
+    res.update(n_params=la.n_params,
                accumulate_s=la.fit_seconds["accumulate"], decompose_s=la.fit_seconds["decompose"],
                launches=launches, symeig_retries=retries, factor_sizes=sizes,
-               eig_rel_err_vs_eigh=worst, log_marglik=lml, marglik_100_steps_s=marglik_s,
-               prior_precision=pp, predictive_s=pred_s, predictive_shape=list(probs.shape),
+               eig_rel_err_vs_eigh=worst, log_marglik=lml,
+               prior_precision=pp, predictive_shape=list(probs.shape),
                predictive_row_sum_err=row_err, tf32_flags_before=flags0,
                tf32_flags_after_fit=flags_after_fit, tf32_flags_after_tuning_and_predictive=flags_after,
                peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
@@ -739,9 +798,6 @@ def last_layer_phase(seed, device):
     import torch
 
     from laplace_jax_torch import DiagLLLaplace, FullLLLaplace, KronLLLaplace, Laplace
-    from laplace_jax_torch.ops.latrd import latrd_panel
-    from laplace_jax_torch.ops.latrd_v4 import latrd_panel_v4
-    from laplace_jax_torch.ops.syrk import syrk
 
     net, loader, X_test = full_width(seed)
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -750,14 +806,9 @@ def last_layer_phase(seed, device):
 
     def fit(la, name):
         torch.cuda.reset_peak_memory_stats()
-        latrd_panel.launches = latrd_panel_v4.launches = syrk.launches = 0
-        t0 = time.perf_counter()
-        la.fit(loader)
-        torch.cuda.synchronize()
-        res[f"{name}_fit_s"] = time.perf_counter() - t0
-        res[f"{name}_launches"] = {"latrd_panel": latrd_panel.launches,
-                                   "latrd_panel_v4": latrd_panel_v4.launches,
-                                   "syrk": syrk.launches}
+        zero_launches()
+        timed(res, f"{name}_fit_s", lambda: la.fit(loader))
+        res[f"{name}_launches"] = kernel_launches("latrd_panel", "latrd_panel_v4", "syrk")
         res[f"{name}_fit_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
         res[f"{name}_log_marglik"] = float(la.log_marginal_likelihood())
         return res[f"{name}_launches"]
@@ -768,10 +819,10 @@ def last_layer_phase(seed, device):
                last_layer=list(kron.last_layer_path))
     links = {}
     for link in ("bridge", "bridge_norm", "mc"):
-        t0 = time.perf_counter()
-        p = kron(X_test[:8], link_approx=link, n_samples=100, generator=gen)
-        torch.cuda.synchronize()
-        links[link] = dict(s=time.perf_counter() - t0, shape=list(p.shape),
+        links[link] = {}
+        p = timed(links[link], "s", lambda: kron(X_test[:8], link_approx=link, n_samples=100,
+                                                 generator=gen))
+        links[link].update(shape=list(p.shape),
                            finite=bool(torch.isfinite(p).all()),
                            row_sum_err=float((p.sum(-1) - 1).abs().max()))
     res["kron_links_8"] = links
@@ -782,22 +833,15 @@ def last_layer_phase(seed, device):
     res["full_H_rel_err_vs_f64"] = float((full.H.double() - H64).abs().max() / H64.abs().max())
     res["full_H_exactly_symmetric"] = bool(torch.equal(full.H, full.H.mT))
     res.update(full_syrk_time(net, loader, device))
-    t0 = time.perf_counter()
-    full.optimize_prior_precision(method="marglik", n_steps=100)
-    torch.cuda.synchronize()
-    res["full_marglik_100_steps_s"] = time.perf_counter() - t0
+    timed(res, "full_marglik_100_steps_s", lambda: full.optimize_prior_precision(
+        method="marglik", n_steps=100))
     res["full_prior_precision"] = float(full.prior_precision[0])
     res["full_log_marglik_tuned"] = float(full.log_marginal_likelihood())
-    t0 = time.perf_counter()
-    probs = full(X_test[:8])
-    torch.cuda.synchronize()
-    res["full_probit_8_s"] = time.perf_counter() - t0
+    probs = timed(res, "full_probit_8_s", lambda: full(X_test[:8]))
     res["full_probit_row_sum_err"] = float((probs.sum(-1) - 1).abs().max())
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    samples = full.predictive_samples(X_test, pred_type="glm", n_samples=100, generator=gen)
-    torch.cuda.synchronize()
-    res["full_glm_samples_100x128_s"] = time.perf_counter() - t0
+    samples = timed(res, "full_glm_samples_100x128_s", lambda: full.predictive_samples(
+        X_test, pred_type="glm", n_samples=100, generator=gen))
     res["full_glm_samples_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
     res["full_glm_samples_shape"] = list(samples.shape)
     res["full_glm_samples_row_sum_err"] = float((samples.sum(-1) - 1).abs().max())
@@ -864,10 +908,6 @@ def eigensolvers_phase(seed, device, main):
 
     from laplace_jax_torch import KronLaplace
     from laplace_jax_torch.ops.eigh_dc import eigh_pooled_dc
-    from laplace_jax_torch.ops.latrd import latrd_panel
-    from laplace_jax_torch.ops.latrd_v2 import latrd_panel_v2
-    from laplace_jax_torch.ops.latrd_v3 import latrd_panel_v3
-    from laplace_jax_torch.ops.latrd_v4 import latrd_panel_v4
     from laplace_jax_torch.ops.tridiag_eig import eigh_stack_ts
     from laplace_jax_torch.utils import matrix
 
@@ -878,18 +918,15 @@ def eigensolvers_phase(seed, device, main):
 
     # 1. the pooled D&C through the user's entry point
     la = KronLaplace(net, "classification", device=device)
-    latrd_panel.launches = latrd_panel_v4.launches = 0
+    zero_launches()
     retries0 = matrix.SYMEIG_RETRIES
     matrix.EIGH_IMPLEMENTATION = "dc"
     try:
-        t0 = time.perf_counter()
-        la.fit(loader)
-        torch.cuda.synchronize()
-        res["dc_fit_s"] = time.perf_counter() - t0
+        timed(res, "dc_fit_s", lambda: la.fit(loader))
     finally:
         matrix.EIGH_IMPLEMENTATION = None
     res["dc_decompose_s"] = la.fit_seconds["decompose"]
-    res["dc_ts_kernel_launches"] = latrd_panel.launches + latrd_panel_v4.launches
+    res["dc_ts_kernel_launches"] = sum(kernel_launches("latrd_panel", "latrd_panel_v4").values())
     res["dc_symeig_retries"] = matrix.SYMEIG_RETRIES - retries0
     res["dc_log_marglik"] = float(la.log_marginal_likelihood())
     res["dc_lml_rel_diff"] = abs(res["dc_log_marglik"] - main["log_marglik"]) / abs(main["log_marglik"])
@@ -909,25 +946,18 @@ def eigensolvers_phase(seed, device, main):
     # 2. every class n >= 512 through the v3 and the v2 stage-1 kernels, each
     # panel tallied by (K, m, off, nb)
     tally = PanelTally(ROUTE_PANELS)
-    for stage1, kernel in (("latrd_v3", latrd_panel_v3), ("latrd_v2", latrd_panel_v2)):
-        latrd_panel.launches = latrd_panel_v4.launches = 0
-        latrd_panel_v2.launches = latrd_panel_v3.launches = 0
-        errs, secs = {}, 0.0
+    for stage1 in ("latrd_v3", "latrd_v2"):
+        zero_launches()
+        errs, secs = {}, {}
         for n, (_, st) in stacks.items():
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
             with tally:
-                lam, _ = eigh_stack_ts(st, stage1=stage1, device=device)
-            torch.cuda.synchronize()
-            secs += time.perf_counter() - t0
+                lam, _ = timed(secs, n, lambda: eigh_stack_ts(st, stage1=stage1, device=device))
             ref = refs[n]
             errs[n] = float(((lam.double() - ref).abs().amax(1) / ref.abs().amax(1)).max())
         res[f"{stage1}_eig_rel_err"] = errs
-        res[f"{stage1}_s"] = secs
-        res[f"{stage1}_launches"] = {"latrd_panel": latrd_panel.launches,
-                                     "latrd_panel_v4": latrd_panel_v4.launches,
-                                     "latrd_panel_v3": latrd_panel_v3.launches,
-                                     "latrd_panel_v2": latrd_panel_v2.launches}
+        res[f"{stage1}_s"] = sum(secs.values())
+        res[f"{stage1}_launches"] = kernel_launches("latrd_panel", "latrd_panel_v4",
+                                                    "latrd_panel_v3", "latrd_panel_v2")
 
     # 3. float64 D&C on the card against the CPU: its default draws come
     # from seeded CPU generators and are moved to the card, so both calls
@@ -1057,7 +1087,6 @@ def marglik_training_phase(seed, device, smi):
 
     from laplace_jax_torch import KronLaplace, marglik_training
     from laplace_jax_torch.ops.latrd import latrd_panel, latrd_panel_plain
-    from laplace_jax_torch.ops.latrd_v4 import latrd_panel_v4
     from laplace_jax_torch.utils.data import ArrayLoader
 
     rng = np.random.default_rng(seed)
@@ -1066,17 +1095,16 @@ def marglik_training_phase(seed, device, smi):
     kw = dict(likelihood="classification", hessian_structure="kron", n_epochs=MT_EPOCHS,
               n_hypersteps=MT_HYPERSTEPS, marglik_frequency=1)
     t_start = time.perf_counter()
+    res = dict(phase="marglik_training", nvidia_smi=smi, config="bench.py 3a",
+               model="BenchCNN (convs 32/64/64/128, Dense_0 to 10)", n_data=MT_N,
+               batch=MT_BATCH, epochs=MT_EPOCHS, hypersteps=MT_HYPERSTEPS, dtype="float32")
     net = bench_cnn(seed, torch.float32).to(device)
     flags0 = tf32_flags()
-    torch.cuda.synchronize()
-    latrd_panel.launches = latrd_panel_v4.launches = 0
-    t0 = time.perf_counter()
+    zero_launches()
     with PanelTally({"latrd_panel": "latrd"}, keep=True) as tally:
-        la, _, margliks, losses = marglik_training(net, ArrayLoader(X, y, batch_size=MT_BATCH),
-                                                   device=device, **kw)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches = {"latrd_panel": latrd_panel.launches, "latrd_panel_v4": latrd_panel_v4.launches}
+        la, _, margliks, losses = timed(res, "seconds", lambda: marglik_training(
+            net, ArrayLoader(X, y, batch_size=MT_BATCH), device=device, **kw))
+    launches = kernel_launches(*MAIN_LAUNCHES)
     flags_after = tf32_flags()
     probs = la(X[:8])
     row_err = float((probs.sum(-1) - 1).abs().max())
@@ -1087,17 +1115,14 @@ def marglik_training_phase(seed, device, smi):
     # on the CPU
     f64 = []
     for dev in (device, torch.device("cpu")):
-        latrd_panel.launches = 0
-        t1 = time.perf_counter()
-        _, _, ml, lo = marglik_training(bench_cnn(seed, torch.float64),
-                                        ArrayLoader(X.astype(np.float64), y, batch_size=MT_BATCH),
-                                        device=dev, **kw)
-        f64.append((np.asarray(ml), np.asarray(lo), time.perf_counter() - t1, latrd_panel.launches))
+        zero_launches()
+        t = {}
+        _, _, ml, lo = timed(t, "s", lambda: marglik_training(
+            bench_cnn(seed, torch.float64), ArrayLoader(X.astype(np.float64), y,
+                                                        batch_size=MT_BATCH), device=dev, **kw))
+        f64.append((np.asarray(ml), np.asarray(lo), t["s"], latrd_panel.launches))
     (ml_g, lo_g, s_g, f64_launches), (ml_c, lo_c, s_c, _) = f64
-    res = dict(phase="marglik_training", nvidia_smi=smi, config="bench.py 3a",
-               model="BenchCNN (convs 32/64/64/128, Dense_0 to 10)", n_params=la.n_params,
-               n_data=MT_N, batch=MT_BATCH, epochs=MT_EPOCHS, hypersteps=MT_HYPERSTEPS,
-               dtype="float32", seconds=seconds, epochs_per_sec=MT_EPOCHS / seconds,
+    res.update(n_params=la.n_params, epochs_per_sec=MT_EPOCHS / res["seconds"],
                margliks=margliks, losses=losses,
                layerwise_prior=la.prior_precision.tolist(), launches=launches,
                v1_windows={f"{k[0]}x{k[1]}@{k[2]}": n for k, n in tally.counts["latrd_panel"].items()},
@@ -1150,14 +1175,12 @@ def window_study(seeds, device, smi):
         rng = np.random.default_rng(seed)
         X = rng.standard_normal((MT_N, 32, 32, 3)).astype(np.float32)
         y = rng.integers(0, 10, MT_N)
-        t0 = time.perf_counter()
+        res = dict(phase="window_study", seed=seed)
         with PanelTally({"latrd_panel": "latrd"}, keep=True) as tally:
-            marglik_training(bench_cnn(seed, torch.float32).to(device),
-                             ArrayLoader(X, y, batch_size=MT_BATCH), likelihood="classification",
-                             hessian_structure="kron", n_epochs=MT_EPOCHS,
-                             n_hypersteps=MT_HYPERSTEPS, marglik_frequency=1, device=device)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
+            timed(res, "path_s", lambda: marglik_training(
+                bench_cnn(seed, torch.float32).to(device), ArrayLoader(X, y, batch_size=MT_BATCH),
+                likelihood="classification", hessian_structure="kron", n_epochs=MT_EPOCHS,
+                n_hypersteps=MT_HYPERSTEPS, marglik_frequency=1, device=device))
         try:
             rows, failed = path_panels_vs_plain(latrd_panel, latrd_panel_plain,
                                                 tally.inputs["latrd_panel"]), False
@@ -1165,7 +1188,7 @@ def window_study(seeds, device, smi):
             rows, failed = {}, True
         for key, row in rows.items():
             by_key.setdefault(key, []).append(row)
-        emit(dict(phase="window_study", seed=seed, path_s=seconds, failed=failed, windows=rows))
+        emit(dict(res, failed=failed, windows=rows))
 
     def stat(rows, name):
         vals = np.array([r[name] for r in rows])
@@ -1310,9 +1333,6 @@ def regression_phase(seed, device, smi):
 
     from laplace_jax_torch import KronLaplace, Laplace
     from laplace_jax_torch.models.resnet import ResNet18
-    from laplace_jax_torch.ops.latrd import latrd_panel
-    from laplace_jax_torch.ops.latrd_v4 import latrd_panel_v4
-    from laplace_jax_torch.ops.syrk import syrk
     from laplace_jax_torch.utils.data import ArrayLoader
 
     t_start = time.perf_counter()
@@ -1324,29 +1344,21 @@ def regression_phase(seed, device, smi):
     res = dict(phase="regression", nvidia_smi=smi, model="ResNet18(width=64, num_classes=1)",
                n_data=loader.n_data, batch=128, dtype="float32")
 
-    def timed(name, fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        res[f"{name}_s"] = time.perf_counter() - t0
-        return out
-
     la = KronLaplace(net, "regression", device=device)
-    latrd_panel.launches = latrd_panel_v4.launches = 0
-    timed("kron_fit", lambda: la.fit(train))
-    launches = {"latrd_panel": latrd_panel.launches, "latrd_panel_v4": latrd_panel_v4.launches}
+    zero_launches()
+    timed(res, "kron_fit_s", lambda: la.fit(train))
+    launches = kernel_launches(*MAIN_LAUNCHES)
     res.update(n_params=la.n_params, launches=launches, log_marglik=float(la.log_marginal_likelihood()))
-    timed("marglik_100_steps", lambda: la.optimize_prior_precision(
+    timed(res, "marglik_100_steps_s", lambda: la.optimize_prior_precision(
         method="marglik", n_steps=100, prior_structure="layerwise"))
     res["prior_precision"] = la.prior_precision.tolist()
     sn = torch.tensor(1.0, device=device, requires_grad=True)
-    lml = timed("marglik_grad", lambda: la.log_marginal_likelihood(sigma_noise=sn))
+    lml = timed(res, "marglik_grad_s", lambda: la.log_marginal_likelihood(sigma_noise=sn))
     lml.backward()
     res["marglik_grad_sigma_noise"] = float(sn.grad)
-    f_mu, f_var = timed("glm_predictive_8", lambda: la(X_test[:8]))
+    f_mu, f_var = timed(res, "glm_predictive_8_s", lambda: la(X_test[:8]))
     res["f_var_min"] = float(f_var.min())
-    log_prob = float(timed("log_prob", lambda: la.log_prob(la.mean)))
+    log_prob = float(timed(res, "log_prob_s", lambda: la.log_prob(la.mean)))
     res["log_prob_at_mean"] = log_prob
 
     # the NN predictive under the tuned prior, and what its 16 weight
@@ -1356,7 +1368,7 @@ def regression_phase(seed, device, smi):
         return la(X_test[:8], pred_type="nn", link_approx="mc", n_samples=16,
                   generator=torch.Generator(device=device).manual_seed(seed))
 
-    tuned = timed("nn_predictive_tuned_16x8", nn_predictive)
+    tuned = timed(res, "nn_predictive_tuned_16x8_s", nn_predictive)
     res["nn_tuned"] = nn_samples_report(la, X_test[:8],
                                         torch.Generator(device=device).manual_seed(seed), tuned)
     # and under a prior at the scale of the initialization, 1 / mean(w^2) a
@@ -1364,15 +1376,15 @@ def regression_phase(seed, device, smi):
     res["nn_prior_precision"] = [1.0 / max(float(la.mean[sp.offset:sp.offset + sp.size].pow(2)
                                                  .mean()), 1e-4) for sp in la.model.leaf_specs]
     la.prior_precision = res["nn_prior_precision"]
-    nn_mean, nn_var = timed("nn_predictive_16x8", nn_predictive)
+    nn_mean, nn_var = timed(res, "nn_predictive_16x8_s", nn_predictive)
     res["nn_init_scale"] = nn_samples_report(la, X_test[:8],
                                              torch.Generator(device=device).manual_seed(seed),
                                              (nn_mean, nn_var))
 
     full = Laplace(net, "regression", "last_layer", "full", device=device)
-    syrk.launches = 0
-    timed("full_ll_fit", lambda: full.fit(train))
-    res["full_ll_syrk_launches"] = syrk.launches
+    zero_launches()
+    timed(res, "full_ll_fit_s", lambda: full.fit(train))
+    res["full_ll_syrk_launches"] = kernel_launches("syrk")["syrk"]
     res["full_ll_log_marglik"] = float(full.log_marginal_likelihood())
 
     # the gridsearch scored by the Gaussian NLL of f under (f_mu, f_var),
@@ -1381,20 +1393,20 @@ def regression_phase(seed, device, smi):
     # the grid); its choice against the argmin of the same scores taken
     # outside the gridsearch
     kron_ll = Laplace(net, "regression", device=device)
-    timed("kron_ll_fit", lambda: kron_ll.fit(train))
+    timed(res, "kron_ll_fit_s", lambda: kron_ll.fit(train))
     grid = np.logspace(-4, 4, 100)
     kron_ll.prior_precision = float(grid[50])
     mu, var = kron_ll(X_test, diagonal_output=True)
     z = torch.as_tensor(rng.standard_normal(tuple(mu.shape)), dtype=mu.dtype, device=device)
     y_val = mu + z * var.sqrt()
     val = ArrayLoader(X_test, y_val.cpu().numpy(), batch_size=128)
-    timed("gridsearch_100", lambda: kron_ll.optimize_prior_precision(
+    timed(res, "gridsearch_100_s", lambda: kron_ll.optimize_prior_precision(
         method="gridsearch", val_loader=val, loss=GaussianNLL(0.0)))
     res["gridsearch_prior_precision"] = chosen = float(kron_ll.prior_precision[0])
     # the default score for regression, `RunningMSEMetric`, sees only f_mu,
     # which the prior does not move: this shows only that a grid value
     # comes back
-    timed("gridsearch_mse_100", lambda: kron_ll.optimize_prior_precision(
+    timed(res, "gridsearch_mse_100_s", lambda: kron_ll.optimize_prior_precision(
         method="gridsearch", val_loader=val))
     res["gridsearch_mse_prior_precision"] = float(kron_ll.prior_precision[0])
     scores = []
@@ -1446,12 +1458,395 @@ def regression_phase(seed, device, smi):
     return {"latrd_panel": launches["latrd_panel"], "latrd_panel_v4": launches["latrd_panel_v4"],
             "syrk": res["full_ll_syrk_launches"]}
 
+# bench.py's gp_fit_predict: LeNet on 2048 28x28x1 inputs, batch 128, an SoD of 512
+GP_N, GP_BATCH, GP_M, GP_TEST, GP_VAL = 2048, 128, 512, 64, 128
+GP_GRID = 21  # gridsearch values over the default [1e-4, 1e4]
+GP_F32_TOL = 1e-4  # streamed vs cached fit, float32: K_MM and Sigma_chol relative to
+# their largest entry, the probit probabilities absolute
+GP_F64_M = 64  # the SoD of the float64 card-vs-CPU fit (bounds the CPU's time)
+F64_REL_TOL = 1e-9  # float64 card vs CPU: K_MM, H, margliks and predictives, relative
+# bench.py config 3b: FullSubnetLaplace on BenchCNN's 128 largest weights, 256 inputs, batch 64
+SUB_N, SUB_BATCH, SUB_K = 256, 64, 128
+
+
+def device_busy(res, name, fn):
+    """`fn()` once under `torch.profiler`: its seconds there (host clock,
+    synchronized) in `res[name]`, the seconds the card spent in the kernels
+    and copies it ran in `res[name + "_device"]`, and their number in
+    `res[name + "_device_ops"]`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        timed(res, name, fn)
+    ops = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    res[f"{name}_device"] = sum(e.time_range.end - e.time_range.start for e in ops) / 1e6
+    res[f"{name}_device_ops"] = len(ops)
+
+
+def gp_fit_parts(la):
+    """The streamed GP fit's parts, each timed alone on the fit's own SoD
+    batches (host clock, synchronized; TF32 off, as in `fit`): its first
+    pass (a forward and a jvp a batch), one Jacobian pass over the M
+    samples (the streamed fit makes one a batch pair (i, j >= i), so
+    (nb + 1) / 2 passes over nb batches), K_MM's block products, the cached
+    path's one Gram product in their place, and Σ's Cholesky; one batch's
+    Jacobians under the profiler, the card's busy time against the wall;
+    and the Jacobian pass again after the profiler (the first time a
+    process profiles, later launches may cost the host more)."""
+    import torch
+
+    from laplace_jax_torch.utils.device import full_f32
+
+    xs, parts = la._sod_x, {}
+    nb = len(xs)
+
+    def first_pass():
+        for x in xs:
+            with torch.no_grad():
+                f = la.model.apply(x)
+            la._mean_scatter_term_batch_streaming(x, f, None)
+
+    with full_f32():
+        timed(parts, "first_pass_s", first_pass)
+        Js = timed(parts, "jacobians_M_s", lambda: [la._jacobians(x)[0] for x in xs])
+        timed(parts, "kmm_block_products_s", lambda: [
+            torch.einsum("mcp,nep->mcne", Js[i], Js[j]) for i in range(nb) for j in range(i, nb)])
+        Jflat = torch.cat(Js).flatten(0, 1)
+        del Js
+        timed(parts, "kmm_gram_s", lambda: Jflat @ Jflat.T)
+        del Jflat
+        timed(parts, "sigma_cholesky_s", la._build_Sigma_inv)
+        device_busy(parts, "jacobians_batch_profiled_s", lambda: la._jacobians(xs[0]))
+        timed(parts, "jacobians_M_after_profiler_s", lambda: [la._jacobians(x)[0] for x in xs])
+    parts["jacobian_passes"] = (nb + 1) / 2
+    parts["streamed_sum_of_parts_s"] = (parts["first_pass_s"] + parts["jacobian_passes"]
+                                        * parts["jacobians_M_s"] + parts["kmm_block_products_s"]
+                                        + parts["sigma_cholesky_s"])
+    parts["jacobian_ms_per_sample"] = 1e3 * parts["jacobians_M_s"] / la.n_subset
+    return parts
+
+
+def functional_phase(seed, device, smi):
+    """`bench.py`'s `gp_fit_predict` at full size: `FunctionalLaplace` on
+    LeNet (28x28x1, 10 classes, 107,786 weights, flax's initializers from
+    `seed`) over 2048 inputs, batch 128, an SoD of 512, float32. The auto
+    rule must stream (the (M, C, P) Jacobian cache would be 2.21 GB); a
+    warm-up fit, then the timed fit and `la(x[:64])`; a second fit with
+    `streaming=False` (the 2.2 GB cache fits the card), held against the
+    streamed one; a gridsearch on 128 validation inputs; FunctionalLLLaplace
+    and `independent_outputs=True` once each; and a float64 fit on the card
+    against the CPU at an SoD of 64. No kernel of the port may launch: the
+    JAX package computes this path outside Pallas too."""
+    import numpy as np
+    import torch
+
+    from laplace_jax_torch import FunctionalLaplace, FunctionalLLLaplace
+    from laplace_jax_torch.functional_laplace import _STREAMING_THRESHOLD_BYTES
+    from laplace_jax_torch.models.lenet import LeNet
+    from laplace_jax_torch.utils.data import ArrayLoader
+
+    t_start = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((GP_N, 28, 28, 1)).astype(np.float32)
+    y = rng.integers(0, 10, GP_N)
+    Xv = rng.standard_normal((GP_VAL, 28, 28, 1)).astype(np.float32)
+    loader, X_test = ArrayLoader(X, y, batch_size=GP_BATCH), X[:GP_TEST]
+    net = LeNet(generator=torch.Generator().manual_seed(seed))
+    res = dict(phase="functional", nvidia_smi=smi, config="bench.py gp_fit_predict",
+               model="LeNet (28x28x1, 10 classes)", n_data=GP_N, batch=GP_BATCH, n_subset=GP_M,
+               dtype="float32")
+    zero_launches()
+
+    la = FunctionalLaplace(net, "classification", n_subset=GP_M, device=device)
+    cache_bytes = GP_M * 10 * la.n_params * 4
+    la.fit(loader)  # warm-up, as bench.py
+    la(X_test)
+    torch.cuda.reset_peak_memory_stats()
+    timed(res, "gp_fit_sec", lambda: la.fit(loader))
+    res["gp_fit_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    probs = timed(res, "gp_predict_sec", lambda: la(X_test))
+    res["gp_fit_parts"] = gp_fit_parts(la)
+    res.update(n_params=la.n_params, jacobian_cache_bytes=cache_bytes,
+               threshold_bytes=_STREAMING_THRESHOLD_BYTES,
+               path="streaming" if la.Js_M is None else "cached",
+               probit_row_sum_err=float((probs.sum(-1) - 1).abs().max()),
+               log_marglik=float(la.log_marginal_likelihood()))
+
+    cached = FunctionalLaplace(net, "classification", n_subset=GP_M, streaming=False,
+                               device=device)
+    torch.cuda.reset_peak_memory_stats()
+    timed(res, "gp_fit_sec_cached", lambda: cached.fit(loader))
+    res["gp_fit_cached_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    probs_c = timed(res, "gp_predict_sec_cached", lambda: cached(X_test))
+    res.update(cached_path="streaming" if cached.Js_M is None else "cached",
+               K_MM_rel_err_stream_vs_cached=rel_err(la.K_MM, cached.K_MM),
+               Sigma_chol_rel_err_stream_vs_cached=rel_err(la.Sigma_chol, cached.Sigma_chol),
+               probs_abs_err_stream_vs_cached=float((probs - probs_c).abs().max()),
+               log_marglik_cached=float(cached.log_marginal_likelihood()))
+
+    # the gridsearch on the cached fit (each grid value rebuilds Σ and runs
+    # the predictive), on two sets of validation labels: each input's most
+    # likely class under the fit's predictive (the NLL falls as the variance
+    # does) and its least likely (the NLL falls as the predictive flattens),
+    # so the two best priors differ; each choice against the argmin of the
+    # same NLL scores taken outside the gridsearch
+    grid = np.logspace(-4, 4, GP_GRID)
+    pv = cached(Xv)
+    labels = {"mode": pv.argmax(-1), "least": pv.argmin(-1)}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        for name, yv in labels.items():
+            timed(res, f"gridsearch_{name}_sec", lambda: cached.optimize_prior_precision(
+                method="gridsearch", val_loader=ArrayLoader(Xv, yv.cpu().numpy(),
+                                                            batch_size=GP_BATCH),
+                grid_size=GP_GRID))
+            res[f"gridsearch_{name}_prior_precision"] = float(cached.prior_precision[0])
+        res["gridsearch_probit_row_sum_err"] = float((cached(X_test).sum(-1) - 1).abs().max())
+        scores = {name: [] for name in labels}
+        for p in grid:
+            cached.prior_precision = float(p)
+            try:
+                pv = cached(Xv)
+                for name, yv in labels.items():
+                    scores[name].append(float(-torch.log(pv[torch.arange(GP_VAL), yv]).mean()))
+            except torch.linalg.LinAlgError:  # as the gridsearch: a failed factor scores inf
+                for name in labels:
+                    scores[name].append(math.inf)
+    res["gridsearch_scores"] = {name: dict(min=min(sc), max=max(sc),
+                                           argmin=float(grid[int(np.argmin(sc))]))
+                                for name, sc in scores.items()}
+
+    ind = FunctionalLaplace(net, "classification", n_subset=GP_M, streaming=False,
+                            independent_outputs=True, device=device)
+    timed(res, "independent_fit_sec", lambda: ind.fit(loader))
+    K_full = cached.K_MM.view(GP_M, 10, GP_M, 10)
+    res["independent_K_rel_err_vs_blocks"] = max(
+        rel_err(ind.K_MM[c], K_full[:, c, :, c]) for c in range(10))
+    res["independent_probit_row_sum_err"] = float((ind(X_test).sum(-1) - 1).abs().max())
+    res["independent_log_marglik"] = float(ind.log_marginal_likelihood())
+
+    ll = FunctionalLLLaplace(net, "classification", n_subset=GP_M, device=device)
+    timed(res, "ll_fit_sec", lambda: ll.fit(loader))
+    res.update(ll_last_layer=list(ll.last_layer_path), ll_n_params=ll.n_params,
+               ll_path="streaming" if ll.Js_M is None else "cached",
+               ll_probit_row_sum_err=float((ll(X_test).sum(-1) - 1).abs().max()),
+               ll_log_marglik=float(ll.log_marginal_likelihood()))
+    res["launches"] = kernel_launches()
+
+    # float64: the card against the CPU, at an SoD of 64
+    f64 = []
+    loader64 = ArrayLoader(X.astype(np.float64), y, batch_size=GP_BATCH)
+    for dev in (device, torch.device("cpu")):
+        la64 = FunctionalLaplace(LeNet(generator=torch.Generator().manual_seed(seed)).double(),
+                                 "classification", n_subset=GP_F64_M, device=dev)
+        t = {}
+        timed(t, "s", lambda: la64.fit(loader64))
+        f64.append((la64.K_MM.cpu(), float(la64.log_marginal_likelihood()),
+                    la64(X_test.astype(np.float64)).cpu(), t["s"]))
+    (K_g, l_g, p_g, s_g), (K_c, l_c, p_c, s_c) = f64
+    res.update(f64_n_subset=GP_F64_M, f64_card_s=s_g, f64_cpu_s=s_c,
+               f64_K_MM_rel_err=rel_err(K_g, K_c), f64_log_marglik_rel_err=abs(l_g - l_c) / abs(l_c),
+               f64_probs_rel_err=rel_err(p_g, p_c), phase_s=time.perf_counter() - t_start)
+    emit(res)
+
+    check(res["path"] == "streaming" and cache_bytes > _STREAMING_THRESHOLD_BYTES,
+          f"the auto rule took the {res['path']} path at a {cache_bytes} B cache")
+    check(res["cached_path"] == "cached", "streaming=False did not cache the Jacobians")
+    check(la.n_params == 107786, f"LeNet has {la.n_params} weights, not 107,786")
+    for name in ("", "gridsearch_", "independent_", "ll_"):
+        check(res[f"{name}probit_row_sum_err"] <= 1e-5,
+              f"{name or 'streamed '}probit rows sum to 1 within {res[f'{name}probit_row_sum_err']}")
+    check(tuple(probs.shape) == (GP_TEST, 10) and bool(torch.isfinite(probs).all()),
+          f"GP predictive of shape {tuple(probs.shape)}, or not finite")
+    for name in ("log_marglik", "log_marglik_cached", "independent_log_marglik", "ll_log_marglik"):
+        check(math.isfinite(res[name]), f"{name} {res[name]} is not finite")
+    for name in ("K_MM_rel_err_stream_vs_cached", "Sigma_chol_rel_err_stream_vs_cached",
+                 "probs_abs_err_stream_vs_cached", "independent_K_rel_err_vs_blocks"):
+        check(res[name] <= GP_F32_TOL, f"{name} {res[name]:.3e} > {GP_F32_TOL}")
+    check(math.isclose(res["log_marglik"], res["log_marglik_cached"], rel_tol=GP_F32_TOL),
+          f"streamed marglik {res['log_marglik']} vs cached {res['log_marglik_cached']}")
+    for name, sc in res["gridsearch_scores"].items():
+        chosen = res[f"gridsearch_{name}_prior_precision"]
+        check(sc["max"] > sc["min"], f"gridsearch scores ({name} labels) do not vary: {sc}")
+        check(math.isclose(chosen, sc["argmin"], rel_tol=1e-6),
+              f"gridsearch ({name} labels) chose {chosen}, the scores' argmin is {sc['argmin']}")
+    check(res["gridsearch_scores"]["mode"]["argmin"] != res["gridsearch_scores"]["least"]["argmin"],
+          f"the two label sets' best priors coincide: {res['gridsearch_scores']}")
+    check(res["ll_last_layer"] == ["Dense_2"] and ll.n_params == 850,
+          f"FunctionalLL took {res['ll_last_layer']} with {ll.n_params} weights")
+    check(not any(res["launches"].values()), f"the GP path launched kernels: {res['launches']}")
+    for name in ("f64_K_MM_rel_err", "f64_log_marglik_rel_err", "f64_probs_rel_err"):
+        check(res[name] <= F64_REL_TOL, f"float64 card vs CPU: {name} {res[name]:.3e} > "
+                                        f"{F64_REL_TOL}")
+
+
+class SyrkTally:
+    """Within `with`, every `syrk` call the curvature backend makes is
+    recorded: a copy of its M and of its H (the kernel's launch count is
+    untouched)."""
+
+    def __enter__(self):
+        from laplace_jax_torch.curvature import backend
+
+        self.calls, self.inner = [], backend.syrk
+
+        def recorded(M):
+            H = self.inner(M)
+            self.calls.append((M.clone(), H.clone()))
+            return H
+
+        backend.syrk = recorded
+        return self
+
+    def __exit__(self, *exc):
+        from laplace_jax_torch.curvature import backend
+
+        backend.syrk = self.inner
+
+
+def subnet_phase(seed, device, smi):
+    """`bench.py` config 3b at full size: BenchCNN (131,466 weights) on 256
+    CIFAR-10-shaped inputs, batch 64, float32; `LargestMagnitudeSubnetMask(128)`
+    into `Laplace(..., "subnetwork", "full")`: a warm-up fit with every syrk
+    launch's M and H recorded (each H against `syrk_plain` on its M, exactly
+    symmetric), then the timed fit (`subnet_full_fit_sec`) with its 4 syrk
+    launches read from it; the syrk kernel timed at that (640, 128) shape; a
+    GLM predictive and a log marglik; `DiagSubnetLaplace` once (against the
+    full H's diagonal); the two variance masks timed (an all-weights
+    `DiagLaplace`, and SWAG at its defaults: 40 epochs); then float64 fits
+    on the card and on the CPU, H and the marglik against each other."""
+    import numpy as np
+    import torch
+
+    from laplace_jax_torch import DiagLaplace, DiagSubnetLaplace, FullSubnetLaplace, Laplace
+    from laplace_jax_torch.ops.syrk import syrk, syrk_plain
+    from laplace_jax_torch.utils.data import ArrayLoader
+    from laplace_jax_torch.utils.device import full_f32
+    from laplace_jax_torch.utils.subnetmask import (
+        LargestMagnitudeSubnetMask,
+        LargestVarianceDiagLaplaceSubnetMask,
+        LargestVarianceSWAGSubnetMask,
+    )
+
+    t_start = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((SUB_N, 32, 32, 3)).astype(np.float32)
+    y = rng.integers(0, 10, SUB_N)
+    loader = ArrayLoader(X, y, batch_size=SUB_BATCH)
+    net = bench_cnn(seed, torch.float32)
+    res = dict(phase="subnet", nvidia_smi=smi, config="bench.py 3b",
+               model="BenchCNN (convs 32/64/64/128, Dense_0 to 10)", n_data=SUB_N,
+               batch=SUB_BATCH, n_params_subnet=SUB_K, dtype="float32")
+    idx = timed(res, "magnitude_select_sec",
+                lambda: LargestMagnitudeSubnetMask(net, SUB_K, device=device).select(loader))
+    la = Laplace(net, "classification", "subnetwork", "full", subnetwork_indices=idx,
+                 device=device)
+    zero_launches()
+    with SyrkTally() as tally:
+        la.fit(loader)  # warm-up, as bench.py
+    warm_launches = syrk.launches
+    H_warm = la.H.clone()
+    zero_launches()
+    timed(res, "subnet_full_fit_sec", lambda: la.fit(loader))
+    res["launches"] = kernel_launches()
+    # the fit's per-sample Jacobians timed alone (TF32 off, as in `fit`),
+    # and one batch's under the profiler
+    parts, xs = {}, [la._tensor(la._unpack_batch(data)[0]) for data in loader]
+    with full_f32():
+        timed(parts, "jacobians_s", lambda: [la.backend.jacobians(x) for x in xs])
+        device_busy(parts, "jacobians_batch_profiled_s", lambda: la.backend.jacobians(xs[0]))
+    parts["jacobian_ms_per_sample"] = 1e3 * parts["jacobians_s"] / SUB_N
+    res["subnet_fit_parts"] = parts
+    per_launch = [dict(shape=list(M.shape), rel_err=rel_err(H, syrk_plain(M)),
+                       exactly_symmetric=bool(torch.equal(H, H.mT))) for M, H in tally.calls]
+    H_sum = tally.calls[0][1]
+    for _, H in tally.calls[1:]:
+        H_sum = H_sum + H
+    M = tally.calls[0][0]
+    bound_ms, bound_by = syrk_bound_ms(*M.shape, M.element_size(), F32_FLOPS)
+    res.update(n_params=la.n_params, warm_fit_syrk_launches=warm_launches, syrk_per_launch=per_launch,
+               fit_H_equals_sum_of_launches=bool(torch.equal(H_sum, H_warm)),
+               fits_H_rel_err=rel_err(la.H, H_warm),
+               syrk_640x128=dict(shape=list(M.shape), ms=cuda_ms(lambda: syrk(M), reps=50),
+                                 plain_ms=cuda_ms(lambda: syrk_plain(M), reps=50),
+                                 library_ms=cuda_ms(lambda: torch.mm(M.mT, M), reps=50),
+                                 bound_ms=bound_ms, bound_by=bound_by))
+    probs = timed(res, "glm_predict_8_sec", lambda: la(X[:8]))
+    res.update(probit_row_sum_err=float((probs.sum(-1) - 1).abs().max()),
+               log_marglik=float(la.log_marginal_likelihood()))
+
+    diag = Laplace(net, "classification", "subnetwork", "diag", subnetwork_indices=idx,
+                   device=device)
+    timed(res, "diag_fit_sec", lambda: diag.fit(loader))
+    res.update(diag_H_rel_err_vs_full=rel_err(diag.H, torch.diagonal(la.H)),
+               diag_log_marglik=float(diag.log_marginal_likelihood()),
+               diag_probit_row_sum_err=float((diag(X[:8]).sum(-1) - 1).abs().max()))
+
+    var_idx = timed(res, "variance_diag_select_sec", lambda: LargestVarianceDiagLaplaceSubnetMask(
+        net, SUB_K, DiagLaplace(net, "classification", device=device), device=device).select(loader))
+    swag_idx = timed(res, "variance_swag_select_sec", lambda: LargestVarianceSWAGSubnetMask(
+        net, SUB_K, device=device).select(loader))
+    res.update(variance_diag_indices=len(var_idx), variance_swag_indices=len(swag_idx),
+               masks_overlap={"magnitude_diag": len(np.intersect1d(idx, var_idx)),
+                              "magnitude_swag": len(np.intersect1d(idx, swag_idx))})
+
+    # float64: the card against the CPU, the same indices
+    f64 = []
+    loader64 = ArrayLoader(X.astype(np.float64), y, batch_size=SUB_BATCH)
+    for dev in (device, torch.device("cpu")):
+        la64 = FullSubnetLaplace(bench_cnn(seed, torch.float64), "classification", idx, device=dev)
+        zero_launches()
+        t = {}
+        timed(t, "s", lambda: la64.fit(loader64))
+        f64.append((la64.H.cpu(), float(la64.log_marginal_likelihood()), syrk.launches, t["s"]))
+    (H_g, l_g, n_g, s_g), (H_c, l_c, _, s_c) = f64
+    res.update(f64_card_s=s_g, f64_cpu_s=s_c, f64_card_syrk_launches=n_g,
+               f64_H_rel_err=rel_err(H_g, H_c), f64_log_marglik_rel_err=abs(l_g - l_c) / abs(l_c),
+               phase_s=time.perf_counter() - t_start)
+    emit(res)
+
+    n_batches = -(-SUB_N // SUB_BATCH)
+    check(isinstance(la, FullSubnetLaplace) and isinstance(diag, DiagSubnetLaplace),
+          "Laplace() gave the wrong subnetwork classes")
+    check(la.n_params == 131466 and la.n_params_subnet == SUB_K,
+          f"BenchCNN with {la.n_params} weights, a subnetwork of {la.n_params_subnet}")
+    check(res["launches"]["syrk"] == n_batches and warm_launches == n_batches,
+          f"the subnet fits launched syrk {warm_launches} and {res['launches']['syrk']} times, "
+          f"not {n_batches}")
+    check(len(per_launch) == n_batches and all(r["shape"] == [SUB_BATCH * 10, SUB_K]
+                                               for r in per_launch),
+          f"syrk calls {[r['shape'] for r in per_launch]}")
+    for r in per_launch:
+        check(r["rel_err"] <= SYRK_TOL["float32"],
+              f"subnet syrk launch off syrk_plain by {r['rel_err']:.3e} > {SYRK_TOL['float32']}")
+        check(r["exactly_symmetric"], "a subnet syrk launch is not exactly symmetric")
+    check(res["fit_H_equals_sum_of_launches"], "the fit's H is not the sum of its launches' H")
+    check(not any(n for k, n in res["launches"].items() if k != "syrk"),
+          f"the subnet fit launched other kernels: {res['launches']}")
+    check(tuple(probs.shape) == (8, 10) and res["probit_row_sum_err"] <= 1e-5,
+          f"subnet probit of shape {tuple(probs.shape)}, rows sum to 1 within "
+          f"{res['probit_row_sum_err']}")
+    for name in ("log_marglik", "diag_log_marglik"):
+        check(math.isfinite(res[name]), f"{name} {res[name]} is not finite")
+    check(res["diag_probit_row_sum_err"] <= 1e-5, "DiagSubnet probit rows do not sum to 1")
+    check(res["diag_H_rel_err_vs_full"] <= DIAG_TOL,
+          f"DiagSubnet H off diag(FullSubnet H) by {res['diag_H_rel_err_vs_full']:.3e} > {DIAG_TOL}")
+    check(len(var_idx) == SUB_K and len(swag_idx) == SUB_K, "a variance mask's size is off")
+    check(n_g == n_batches, f"the float64 card fit launched syrk {n_g} times")
+    for name in ("f64_H_rel_err", "f64_log_marglik_rel_err"):
+        check(res[name] <= F64_REL_TOL, f"float64 card vs CPU: {name} {res[name]:.3e} > "
+                                        f"{F64_REL_TOL}")
+    return {"syrk": res["launches"]["syrk"]}, res["syrk_640x128"]
+
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--window-study", type=int, default=0, metavar="SEEDS",
                     help="after the build, run only the v1 window study over SEEDS seeds")
+    ap.add_argument("--gp-subnet-repeats", type=int, default=0, metavar="N",
+                    help="after the build, run only the functional and subnet phases, N times "
+                         "in turn in this one process (the first of each is cold)")
     args = ap.parse_args()
 
     import torch
@@ -1491,6 +1886,12 @@ def main() -> None:
     if args.window_study:
         window_study(args.window_study, device, smi)
         return
+    if args.gp_subnet_repeats:
+        for rep in range(args.gp_subnet_repeats):
+            emit(dict(phase="repeat", repetition=rep))
+            functional_phase(args.seed, device, smi)
+            subnet_phase(args.seed, device, smi)
+        return
     rows = [kernel_phase(*row, args.seed, device) for row in KERNELS]
     rows.append(syrk_phase(args.seed, device, _build.build_log("syrk")))
     reference_phase(args.seed, device)
@@ -1509,10 +1910,14 @@ def main() -> None:
     # the marglik-training and regression paths, each read from its own run
     by_path = {"marglik_training": marglik_training_phase(args.seed, device, smi),
                "regression": regression_phase(args.seed, device, smi)}
+    # the GP path launches no kernel; the subnet path launches syrk once a batch
+    functional_phase(args.seed, device, smi)
+    by_path["subnet"], syrk_640x128 = subnet_phase(args.seed, device, smi)
+    next(r for r in rows if r["name"] == "syrk")["at_640x128"] = syrk_640x128
 
     keys = ("name", "route", "source", "replaces", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
-    extra = ("main_path_ms", "route_ms", "stream_bound_ms", "ms_3x4608")
+    extra = ("main_path_ms", "route_ms", "stream_bound_ms", "ms_3x4608", "at_640x128")
     print(json.dumps({"kernels": [dict({k: r[k] for k in keys}, launches=launches[r["name"]],
                                        **{k: r[k] for k in extra if k in r},
                                        launches_by_path={p: n[r["name"]] for p, n in by_path.items()

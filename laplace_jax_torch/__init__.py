@@ -22,10 +22,12 @@ from laplace_jax_torch.enums import (
     SubsetOfWeights,
     TuningMethod,
 )
+from laplace_jax_torch.functional_laplace import FunctionalLaplace, FunctionalLLLaplace
 from laplace_jax_torch.laplace import Laplace
 from laplace_jax_torch.lllaplace import DiagLLLaplace, FullLLLaplace, KronLLLaplace, LLLaplace
 from laplace_jax_torch.marglik_training import marglik_training
 from laplace_jax_torch.nnmodel import NNModel
+from laplace_jax_torch.subnetlaplace import DiagSubnetLaplace, FullSubnetLaplace, SubnetLaplace
 from laplace_jax_torch.utils import (
     ArrayLoader,
     RunningMSEMetric,
@@ -45,6 +47,11 @@ __all__ = [
     "KronLLLaplace",
     "FullLLLaplace",
     "DiagLLLaplace",
+    "SubnetLaplace",
+    "FullSubnetLaplace",
+    "DiagSubnetLaplace",
+    "FunctionalLaplace",
+    "FunctionalLLLaplace",
     "Laplace",
     "marglik_training",
     "NNModel",

@@ -264,6 +264,93 @@ class BaseLaplace:
     def predictive(self, x, pred_type, link_approx, n_samples):
         return self(x, pred_type=pred_type, link_approx=link_approx, n_samples=n_samples)
 
+    @full_f32()
+    def log_marginal_likelihood(self, prior_precision=None, sigma_noise=None):
+        """Laplace approximation to the log marginal likelihood, differentiable
+        in its arguments (reference `baselaplace.py:892`): an argument that
+        requires grad is used as it is, any other is also stored."""
+        if prior_precision is not None and not _requires_grad(prior_precision):
+            self.prior_precision = prior_precision
+        if sigma_noise is not None:
+            if self.likelihood != Likelihood.REGRESSION:
+                raise ValueError("Can only change sigma_noise for regression.")
+            if not _requires_grad(sigma_noise):
+                self.sigma_noise = sigma_noise
+        pp = (self.prior_precision if prior_precision is None
+              else torch.atleast_1d(self._float(prior_precision)))
+        sn = self.sigma_noise if sigma_noise is None else self._float(sigma_noise).reshape(())
+        return self._log_marglik(pp, sn)
+
+    def _log_marglik(self, prior_precision, sigma_noise):
+        raise NotImplementedError
+
+    def _glm_link_output(self, f_mu, f_var, likelihood, joint, link_approx, n_samples,
+                         diagonal_output, generator):
+        """The link applied to the GLM predictive (reference
+        `baselaplace.py:307-352`)."""
+        if likelihood == Likelihood.REGRESSION:
+            if diagonal_output and not joint and f_var.ndim == 3:
+                f_var = torch.diagonal(f_var, dim1=-2, dim2=-1)
+            return f_mu, f_var
+        if link_approx == LinkApprox.MC:
+            return self._glm_predictive_samples(f_mu, f_var, n_samples, diagonal_output,
+                                                generator).mean(0)
+        if link_approx == LinkApprox.PROBIT:
+            kappa = 1.0 / torch.sqrt(1.0 + math.pi / 8 * torch.diagonal(f_var, dim1=1, dim2=2))
+            return torch.softmax(kappa * f_mu, dim=-1)
+        if "bridge" in link_approx:
+            # zero-mean correction, then the Laplace bridge
+            total = f_var.sum(dim=(1, 2))
+            f_mu = f_mu - f_var.sum(-1) * f_mu.sum(-1)[:, None] / total[:, None]
+            f_var = f_var - (torch.einsum("bi,bj->bij", f_var.sum(-1), f_var.sum(-2))
+                             / total[:, None, None])
+            K = f_mu.shape[-1]
+            f_var_diag = torch.diagonal(f_var, dim1=1, dim2=2)
+            if link_approx == LinkApprox.BRIDGE_NORM:
+                f_var_diag_mean = f_var_diag.mean(1) / math.sqrt(K / 2.0)
+                f_mu = f_mu / torch.sqrt(f_var_diag_mean)[:, None]
+                f_var_diag = f_var_diag / f_var_diag_mean[:, None]
+            sum_exp = torch.exp(-f_mu).sum(1)[:, None]
+            alpha = (1.0 - 2.0 / K + torch.exp(f_mu) / K ** 2 * sum_exp) / f_var_diag
+            return torch.nan_to_num(alpha / alpha.sum(1)[:, None], nan=1.0)
+        raise ValueError("Prediction path invalid. Check the likelihood, pred_type, "
+                         "link_approx combination!")
+
+    def _glm_functional_samples(self, f_mu, f_var, n_samples, diagonal_output=False,
+                                generator=None):
+        """Gaussian function samples (n_samples, batch, outputs) from the GLM
+        predictive."""
+        if f_var.ndim == 3 and diagonal_output:
+            f_var = torch.diagonal(f_var, dim1=1, dim2=2)
+        return normal_samples(f_mu, f_var, n_samples, self._rng(generator))
+
+    def _glm_predictive_samples(self, f_mu, f_var, n_samples, diagonal_output=False,
+                                generator=None):
+        """The function samples through the inverse link (the softmax unless
+        the likelihood is regression)."""
+        fs = self._glm_functional_samples(f_mu, f_var, n_samples, diagonal_output, generator)
+        if self.likelihood == Likelihood.REGRESSION:
+            return fs
+        return torch.softmax(fs, dim=-1)
+
+    def _glm_predictive_distribution(self, x, joint: bool = False,
+                                     diagonal_output: bool = False):
+        """GLM predictive mean f (batch, outputs) and variance (batch,
+        outputs, outputs) or its diagonal; with `joint`, f flattened and
+        the (batch·outputs)² covariance (reference `baselaplace.py:989`)."""
+        Js, f_mu = self.backend._jacobians_dispatch(self._tensor(x),
+                                                    create_graph=self.enable_backprop)
+        if joint:
+            f_mu = f_mu.reshape(-1)
+            f_var = self.functional_covariance(Js)
+        else:
+            f_var = self.functional_variance(Js)
+            if diagonal_output:
+                f_var = torch.diagonal(f_var, dim1=-2, dim2=-1)
+        if not self.enable_backprop:
+            f_mu, f_var = f_mu.detach(), f_var.detach()
+        return f_mu, f_var
+
 
 class ParametricLaplace(BaseLaplace):
     """Weight-space posterior skeleton (reference `baselaplace.py:667`)."""
@@ -354,23 +441,6 @@ class ParametricLaplace(BaseLaplace):
             self._log_det_ratio(prior_precision, sigma_noise)
             + self._scatter(prior_precision))
 
-    @full_f32()
-    def log_marginal_likelihood(self, prior_precision=None, sigma_noise=None):
-        """Laplace approximation to the log marginal likelihood, differentiable
-        in its arguments (reference `baselaplace.py:892`): an argument that
-        requires grad is used as it is, any other is also stored."""
-        if prior_precision is not None and not _requires_grad(prior_precision):
-            self.prior_precision = prior_precision
-        if sigma_noise is not None:
-            if self.likelihood != Likelihood.REGRESSION:
-                raise ValueError("Can only change sigma_noise for regression.")
-            if not _requires_grad(sigma_noise):
-                self.sigma_noise = sigma_noise
-        pp = (self.prior_precision if prior_precision is None
-              else torch.atleast_1d(self._float(prior_precision)))
-        sn = self.sigma_noise if sigma_noise is None else self._float(sigma_noise).reshape(())
-        return self._log_marglik(pp, sn)
-
     def square_norm(self, value) -> torch.Tensor:
         raise NotImplementedError
 
@@ -416,55 +486,6 @@ class ParametricLaplace(BaseLaplace):
             return samples.mean(0), samples.var(0, unbiased=False)
         return samples.mean(0)
 
-    def _glm_link_output(self, f_mu, f_var, likelihood, joint, link_approx, n_samples,
-                         diagonal_output, generator):
-        """The link applied to the GLM predictive (reference
-        `baselaplace.py:307-352`)."""
-        if likelihood == Likelihood.REGRESSION:
-            if diagonal_output and not joint and f_var.ndim == 3:
-                f_var = torch.diagonal(f_var, dim1=-2, dim2=-1)
-            return f_mu, f_var
-        if link_approx == LinkApprox.MC:
-            return self._glm_predictive_samples(f_mu, f_var, n_samples, diagonal_output,
-                                                generator).mean(0)
-        if link_approx == LinkApprox.PROBIT:
-            kappa = 1.0 / torch.sqrt(1.0 + math.pi / 8 * torch.diagonal(f_var, dim1=1, dim2=2))
-            return torch.softmax(kappa * f_mu, dim=-1)
-        if "bridge" in link_approx:
-            # zero-mean correction, then the Laplace bridge
-            total = f_var.sum(dim=(1, 2))
-            f_mu = f_mu - f_var.sum(-1) * f_mu.sum(-1)[:, None] / total[:, None]
-            f_var = f_var - (torch.einsum("bi,bj->bij", f_var.sum(-1), f_var.sum(-2))
-                             / total[:, None, None])
-            K = f_mu.shape[-1]
-            f_var_diag = torch.diagonal(f_var, dim1=1, dim2=2)
-            if link_approx == LinkApprox.BRIDGE_NORM:
-                f_var_diag_mean = f_var_diag.mean(1) / math.sqrt(K / 2.0)
-                f_mu = f_mu / torch.sqrt(f_var_diag_mean)[:, None]
-                f_var_diag = f_var_diag / f_var_diag_mean[:, None]
-            sum_exp = torch.exp(-f_mu).sum(1)[:, None]
-            alpha = (1.0 - 2.0 / K + torch.exp(f_mu) / K ** 2 * sum_exp) / f_var_diag
-            return torch.nan_to_num(alpha / alpha.sum(1)[:, None], nan=1.0)
-        raise ValueError("Prediction path invalid. Check the likelihood, pred_type, "
-                         "link_approx combination!")
-
-    def _glm_functional_samples(self, f_mu, f_var, n_samples, diagonal_output=False,
-                                generator=None):
-        """Gaussian function samples (n_samples, batch, outputs) from the GLM
-        predictive."""
-        if f_var.ndim == 3 and diagonal_output:
-            f_var = torch.diagonal(f_var, dim1=1, dim2=2)
-        return normal_samples(f_mu, f_var, n_samples, self._rng(generator))
-
-    def _glm_predictive_samples(self, f_mu, f_var, n_samples, diagonal_output=False,
-                                generator=None):
-        """The function samples through the inverse link (the softmax unless
-        the likelihood is regression)."""
-        fs = self._glm_functional_samples(f_mu, f_var, n_samples, diagonal_output, generator)
-        if self.likelihood == Likelihood.REGRESSION:
-            return fs
-        return torch.softmax(fs, dim=-1)
-
     @full_f32()
     def functional_samples(self, x, pred_type=PredType.GLM, n_samples: int = 100,
                            diagonal_output: bool = False,
@@ -495,24 +516,6 @@ class ParametricLaplace(BaseLaplace):
             return self._glm_predictive_samples(f_mu, f_var, n_samples, diagonal_output,
                                                 generator)
         return self._nn_predictive_samples(x, n_samples, generator)
-
-    def _glm_predictive_distribution(self, x, joint: bool = False,
-                                     diagonal_output: bool = False):
-        """GLM predictive mean f (batch, outputs) and variance (batch,
-        outputs, outputs) or its diagonal; with `joint`, f flattened and
-        the (batch·outputs)² covariance (reference `baselaplace.py:989`)."""
-        Js, f_mu = self.backend._jacobians_dispatch(self._tensor(x),
-                                                    create_graph=self.enable_backprop)
-        if joint:
-            f_mu = f_mu.reshape(-1)
-            f_var = self.functional_covariance(Js)
-        else:
-            f_var = self.functional_variance(Js)
-            if diagonal_output:
-                f_var = torch.diagonal(f_var, dim1=-2, dim2=-1)
-        if not self.enable_backprop:
-            f_mu, f_var = f_mu.detach(), f_var.detach()
-        return f_mu, f_var
 
     def _nn_functional_samples(self, x, n_samples: int = 100, generator=None):
         """The network's outputs (n_samples, batch, outputs) under posterior

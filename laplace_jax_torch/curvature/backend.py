@@ -10,7 +10,9 @@ diagonal carries no Λ.
 
 With `last_layer_path` set, the model's trainable leaves are the last
 Dense layer's, the Jacobians are the closed-form φ⊗I of that layer, and
-KFAC taps that layer alone.
+KFAC taps that layer alone. With `subnetwork_indices` set, the Jacobians
+hold only those columns of the canonical flat vector, in index order, so
+the dense GGN and its diagonal are the subnetwork's.
 """
 
 from __future__ import annotations
@@ -38,13 +40,14 @@ class CurvatureBackend:
     likelihood, 'classification' or 'regression'."""
 
     def __init__(self, model, likelihood=Likelihood.CLASSIFICATION, last_layer_path=None,
-                 feature_reduction=None):
+                 feature_reduction=None, subnetwork_indices=None):
         if likelihood not in (Likelihood.REGRESSION, Likelihood.CLASSIFICATION):
             raise ValueError("Backend likelihood must be regression or classification.")
         self.model = model
         self.likelihood = likelihood
         self.last_layer_path = last_layer_path
         self.feature_reduction = feature_reduction
+        self.subnetwork_indices = subnetwork_indices  # a long tensor, or None
         if likelihood == Likelihood.REGRESSION:
             self.lossfunc, self.factor = mse_sum, 0.5
         else:
@@ -107,11 +110,16 @@ class CurvatureBackend:
 
     def jacobians(self, x, create_graph: bool = False):
         """Per-sample Jacobians J (batch, outputs, n_params), columns in the
-        canonical flat order, and f (batch, outputs).
+        canonical flat order, and f (batch, outputs); with
+        `subnetwork_indices`, J (batch, outputs, n_indices), the columns at
+        those indices.
 
-        One backward pass per sample, each batched over the C outputs.
+        One backward pass per sample, each batched over the C outputs. A
+        sample's (C, n_params) rows are cut to the subnetwork before the
+        next, so no (batch, outputs, n_params) array exists then.
         """
         params = self.model.params_in_order()
+        idx = self.subnetwork_indices
         rows = []
         with torch.enable_grad():
             for b in range(batch_len(x)):
@@ -120,8 +128,8 @@ class CurvatureBackend:
                 eye = torch.eye(C, dtype=fb.dtype, device=fb.device)
                 gs = torch.autograd.grad(fb, params, grad_outputs=eye,
                                          is_grads_batched=True, create_graph=create_graph)
-                rows.append(torch.cat(
-                    [to_flax_layout(g, lead=1).reshape(C, -1) for g in gs], 1))
+                row = torch.cat([to_flax_layout(g, lead=1).reshape(C, -1) for g in gs], 1)
+                rows.append(row if idx is None else row[:, idx])
         with torch.set_grad_enabled(create_graph):
             f = self.model.apply(x)
         return torch.stack(rows), f

@@ -58,8 +58,11 @@ def syrk_plan(R: int, P: int, dtype: torch.dtype) -> SyrkPlan:
 
 
 def syrk_plain(A: torch.Tensor) -> torch.Tensor:
-    """AᵀA in plain PyTorch."""
-    return torch.einsum("rp,rq->pq", A, A)
+    """AᵀA in plain PyTorch, exactly symmetric: the product's lower
+    triangle mirrored, as the kernel and the JAX `syrk` write it (a CPU
+    BLAS need not return the product itself symmetric)."""
+    low = torch.tril(torch.einsum("rp,rq->pq", A, A))
+    return low + torch.tril(low, -1).mT
 
 
 def syrk_tiled(A: torch.Tensor) -> torch.Tensor:

@@ -453,9 +453,10 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
 
 # P mod 4 = 0, 1, 2, 3 around the last-layer shape (1280, 5130) and below
 # one tile; a row of P float32 is 16-, 4-, 8- and 4-byte aligned, which
-# picks the kernel's copy width; R = 0 gives zeros
+# picks the kernel's copy width; R = 0 gives zeros; (640, 128) is the
+# subnetwork GGN of `bench.py` config 3b (one tile in float32)
 SYRK_SHAPES = [(1280, 5128), (1280, 5129), (1280, 5130), (1279, 5131), (256, 512),
-               (37, 130), (17, 125), (5, 64), (3, 7), (0, 64), (1, 1)]
+               (640, 128), (37, 130), (17, 125), (5, 64), (3, 7), (0, 64), (1, 1)]
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10), (torch.float32, 1e-4)])
@@ -551,3 +552,54 @@ def test_kron_laplace_on_card_matches_cpu(cuda):
     assert latrd_panel.launches > launches
     np.testing.assert_allclose(out[1][0], out[0][0], rtol=1e-8)
     torch.testing.assert_close(out[1][1], out[0][1], atol=1e-8, rtol=0)
+
+
+@pytest.mark.parametrize("hessian", ["full", "diag"])
+def test_subnet_laplace_on_card_matches_cpu(cuda, hessian):
+    """A subnetwork of 40 weights of a width-4 ResNet-18 in float64: on the
+    card its dense GGN runs the float64 syrk kernel once per batch."""
+    from laplace_jax_torch import Laplace
+    from laplace_jax_torch.models.resnet import ResNet18
+    from laplace_jax_torch.utils.data import ArrayLoader
+
+    rng = np.random.default_rng(0)
+    X, y = rng.standard_normal((16, 16, 16, 3)), rng.integers(0, 10, 16)
+    net = ResNet18(width=4, generator=torch.Generator().manual_seed(0)).double()
+    idx = np.sort(rng.choice(sum(p.numel() for p in net.parameters()), 40, replace=False))
+    out = []
+    for dev in ("cpu", cuda):
+        la = Laplace(net, "classification", "subnetwork", hessian, subnetwork_indices=idx,
+                     device=dev)
+        launches = syrk.launches
+        la.fit(ArrayLoader(X, y, batch_size=8))
+        out.append((la.H.cpu(), float(la.log_marginal_likelihood()), la(X[:4]).cpu()))
+    assert syrk.launches == launches + (2 if hessian == "full" else 0)
+    torch.testing.assert_close(out[1][0], out[0][0], atol=1e-10 * float(out[0][0].abs().max()),
+                               rtol=0)
+    np.testing.assert_allclose(out[1][1], out[0][1], rtol=1e-9)
+    torch.testing.assert_close(out[1][2], out[0][2], atol=1e-9, rtol=0)
+
+
+@pytest.mark.parametrize("streaming", [False, True])
+def test_functional_laplace_on_card_matches_cpu(cuda, streaming):
+    """`FunctionalLaplace` on a 12x12 LeNet in float64, cached and streamed:
+    the card against the CPU; it launches no kernel of the port."""
+    from laplace_jax_torch import FunctionalLaplace
+    from laplace_jax_torch.models.lenet import LeNet
+    from laplace_jax_torch.utils.data import ArrayLoader
+
+    rng = np.random.default_rng(0)
+    X, y = rng.standard_normal((32, 12, 12, 1)), rng.integers(0, 10, 32)
+    net = LeNet(10, 1, 12, generator=torch.Generator().manual_seed(0)).double()
+    out = []
+    for dev in ("cpu", cuda):
+        la = FunctionalLaplace(net, "classification", n_subset=12, streaming=streaming,
+                               device=dev)
+        launches = syrk.launches
+        la.fit(ArrayLoader(X, y, batch_size=8))
+        out.append((la.K_MM.cpu(), float(la.log_marginal_likelihood()), la(X[:4]).cpu()))
+        assert syrk.launches == launches
+    torch.testing.assert_close(out[1][0], out[0][0], atol=1e-10 * float(out[0][0].abs().max()),
+                               rtol=0)
+    np.testing.assert_allclose(out[1][1], out[0][1], rtol=1e-9)
+    torch.testing.assert_close(out[1][2], out[0][2], atol=1e-9, rtol=0)

@@ -27,8 +27,12 @@ from laplace_jax.utils.data import ArrayLoader as JaxLoader
 from laplace_jax_torch import (
     DiagLaplace,
     DiagLLLaplace,
+    DiagSubnetLaplace,
     FullLaplace,
     FullLLLaplace,
+    FullSubnetLaplace,
+    FunctionalLaplace,
+    FunctionalLLLaplace,
     KronLaplace,
     KronLLLaplace,
     Laplace,
@@ -229,7 +233,12 @@ def test_laplace_defaults_and_keys(pair):
                      (("all", "kron"), KronLaplace), (("all", "full"), FullLaplace),
                      (("all", "diag"), DiagLaplace)]:
         assert type(Laplace(tm, "classification", *key, device="cpu")) is cls
-    for key in [("all", "lowrank"), ("subnetwork", "full"), ("last_layer", "gp")]:
+    for key, cls, kw in [(("subnetwork", "full"), FullSubnetLaplace, dict(subnetwork_indices=[0])),
+                         (("subnetwork", "diag"), DiagSubnetLaplace, dict(subnetwork_indices=[0])),
+                         (("all", "gp"), FunctionalLaplace, dict(n_subset=4)),
+                         (("last_layer", "gp"), FunctionalLLLaplace, dict(n_subset=4))]:
+        assert type(Laplace(tm, "classification", *key, device="cpu", **kw)) is cls
+    for key in [("all", "lowrank"), ("subnetwork", "kron")]:
         with pytest.raises(ValueError, match="not ported"):
             Laplace(tm, "classification", *key, device="cpu")
 
