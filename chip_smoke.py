@@ -655,7 +655,7 @@ def kernel_eig_err(la) -> float:
     return worst
 
 
-def main_path(seed, device):
+def main_path(seed, device, keep):
     import torch
 
     from laplace_jax_torch import KronLaplace
@@ -708,6 +708,8 @@ def main_path(seed, device):
     check(tuple(probs.shape) == (8, 10) and bool(torch.isfinite(probs).all()),
           "predictive has the wrong shape or is not finite")
     check(row_err <= 1e-5, f"predictive rows sum to 1 only within {row_err:.3e}")
+    keep["main_kron"] = (la, lambda: KronLaplace(net, "classification", device=device),
+                         X_test[:8])
     return res
 
 
@@ -792,7 +794,7 @@ def full_syrk_time(net, loader, device):
     return dict(full_syrk_ms=sum(ms), full_syrk_launch_ms=ms)
 
 
-def last_layer_phase(seed, device):
+def last_layer_phase(seed, device, keep):
     """Last-layer Laplace at full width on the main path's network and data:
     the default KronLL (v1 kernel), FullLL (syrk kernel) and DiagLL."""
     import torch
@@ -879,6 +881,10 @@ def last_layer_phase(seed, device):
           f"DiagLL H off diag(FullLL H) by {res['diag_H_rel_err_vs_full']:.3e} > {DIAG_TOL}")
     check(len(res["full_syrk_launch_ms"]) == 4,
           f"the profiled FullLL fit ran {len(res['full_syrk_launch_ms'])} syrk kernels, not 4")
+    keep["last_layer_full"] = (full, lambda: FullLLLaplace(net, "classification", device=device),
+                               X_test[:8])
+    keep["last_layer_diag"] = (diag, lambda: DiagLLLaplace(net, "classification", device=device),
+                               X_test[:8])
     return {"syrk": full_launches["syrk"]}, res["full_syrk_ms"]
 
 
@@ -1526,7 +1532,7 @@ def gp_fit_parts(la):
     return parts
 
 
-def functional_phase(seed, device, smi):
+def functional_phase(seed, device, smi, keep):
     """`bench.py`'s `gp_fit_predict` at full size: `FunctionalLaplace` on
     LeNet (28x28x1, 10 classes, 107,786 weights, flax's initializers from
     `seed`) over 2048 inputs, batch 128, an SoD of 512, float32. The auto
@@ -1678,6 +1684,8 @@ def functional_phase(seed, device, smi):
     for name in ("f64_K_MM_rel_err", "f64_log_marglik_rel_err", "f64_probs_rel_err"):
         check(res[name] <= F64_REL_TOL, f"float64 card vs CPU: {name} {res[name]:.3e} > "
                                         f"{F64_REL_TOL}")
+    keep["functional_gp_streamed"] = (la, lambda: FunctionalLaplace(
+        net, "classification", n_subset=GP_M, device=device), X_test[:8])
 
 
 class SyrkTally:
@@ -1704,7 +1712,7 @@ class SyrkTally:
         backend.syrk = self.inner
 
 
-def subnet_phase(seed, device, smi):
+def subnet_phase(seed, device, smi, keep):
     """`bench.py` config 3b at full size: BenchCNN (131,466 weights) on 256
     CIFAR-10-shaped inputs, batch 64, float32; `LargestMagnitudeSubnetMask(128)`
     into `Laplace(..., "subnetwork", "full")`: a warm-up fit with every syrk
@@ -1836,7 +1844,298 @@ def subnet_phase(seed, device, smi):
     for name in ("f64_H_rel_err", "f64_log_marglik_rel_err"):
         check(res[name] <= F64_REL_TOL, f"float64 card vs CPU: {name} {res[name]:.3e} > "
                                         f"{F64_REL_TOL}")
+    keep["subnet_full"] = (la, lambda: FullSubnetLaplace(net, "classification", idx,
+                                                         device=device), X[:8])
     return {"syrk": res["launches"]["syrk"]}, res["syrk_640x128"]
+
+
+# bench.py's reward_ll_fit (config 5): the RewardTransformer, 512 random token
+# sequences of 128 from vocab 4096, labels in {0, 1}, batch 64, float32
+REWARD_SIZES = dict(vocab=4096, d=256, heads=8, mlp=1024, blocks=4)
+REWARD_N, REWARD_SEQ, REWARD_BATCH = 512, 128, 64
+REWARD_WEIGHTS, REWARD_HEAD = 4_208_130, 2 * 256 + 2
+# the float64 card-vs-CPU check on a narrow twin (64 sequences of 16, batch 16)
+REWARD_NARROW = dict(vocab=64, d=16, heads=2, mlp=32, blocks=2)
+REWARD_F64_TOL = 1e-12  # float64 card vs CPU: factors, H, margliks, predictives, relative
+# a loaded object against the one it was saved from, limits set from the
+# readings of two runs on an H100 (PERF.md §6). The all-weights Kron
+# decomposes its factors again in float32 through v1 and v4 (v4 adds with
+# atomics, so the eigenpairs differ in the last bits from run to run): its
+# probit read 1.49e-8 absolute (one float32 step at its size) in both runs,
+# held to 1e-7; its marglik came back bit for bit, held to two float32
+# steps relative. Every other flavor restores its arrays as they were and
+# read bitwise in both runs: predictive and marglik within two float32
+# steps relative to the largest entry (whether bitwise is reported)
+F32_STEP = 2.0 ** -23
+KRON_LOAD_PRED_TOL, KRON_LOAD_LML_TOL = 1e-7, 2 * F32_STEP
+LOAD_TOL = 2 * F32_STEP
+
+
+def reward_transformer(seed, dtype, sizes):
+    """`bench.py`'s `RewardTransformer` (`bench.py:396-410`) from the port's
+    flax-layer twins: `Embed_0`, 4 blocks of `MultiHeadDotProductAttention_i`
+    (8 heads over d = 256), `LayerNorm`, `Dense` 1024, tanh-gelu, `Dense`
+    256, `LayerNorm`; the mean over the sequence into the head `Dense_8`
+    (2 outputs). flax's initializers, drawn from `seed`."""
+    import torch
+    import torch.nn.functional as F
+    from torch import nn
+
+    from laplace_jax_torch.models.flax_layers import Embed, LayerNorm, MultiHeadDotProductAttention
+    from laplace_jax_torch.models.resnet import _trunc_normal
+
+    class RewardTransformer(nn.Module):
+        def __init__(self, vocab, d, heads, mlp, blocks, generator):
+            super().__init__()
+            self.blocks = blocks
+            self.Embed_0 = Embed(vocab, d, generator=generator)
+            for i in range(blocks):
+                self.add_module(f"MultiHeadDotProductAttention_{i}",
+                                MultiHeadDotProductAttention(d, heads, qkv_features=d,
+                                                             generator=generator))
+                self.add_module(f"LayerNorm_{2 * i}", LayerNorm(d))
+                self.add_module(f"Dense_{2 * i}", nn.Linear(d, mlp))
+                self.add_module(f"Dense_{2 * i + 1}", nn.Linear(mlp, d))
+                self.add_module(f"LayerNorm_{2 * i + 1}", LayerNorm(d))
+            self.add_module(f"Dense_{2 * blocks}", nn.Linear(d, 2))
+            with torch.no_grad():  # flax's Dense initializers: lecun normal, zero bias
+                for m in self.modules():
+                    if isinstance(m, nn.Linear):
+                        _trunc_normal(m.weight, m.in_features ** -0.5, generator)
+                        m.bias.zero_()
+
+        def forward(self, ids):
+            x = self.Embed_0(ids)
+            for i in range(self.blocks):
+                x = getattr(self, f"LayerNorm_{2 * i}")(
+                    x + getattr(self, f"MultiHeadDotProductAttention_{i}")(x))
+                h = F.gelu(getattr(self, f"Dense_{2 * i}")(x), approximate="tanh")
+                x = getattr(self, f"LayerNorm_{2 * i + 1}")(
+                    x + getattr(self, f"Dense_{2 * i + 1}")(h))
+            return getattr(self, f"Dense_{2 * self.blocks}")(x.mean(dim=1))
+
+    return RewardTransformer(**sizes, generator=torch.Generator().manual_seed(seed)).to(dtype)
+
+
+def outputs(out) -> list:
+    """A predictive's tensors: the probabilities, or `(f_mu, f_var)`."""
+    return list(out) if isinstance(out, tuple) else [out]
+
+
+def reward_phase(seed, device, smi, keep):
+    """`bench.py`'s `reward_ll_fit` at full size: the `RewardTransformer`
+    twin (4,208,130 weights) on 512 random sequences of 128 tokens, labels
+    in {0, 1}, batch 64, float32, `"reward_modeling"`. `Laplace(...,
+    "last_layer", "kron")`: a warm-up fit, then the timed fit
+    (`reward_ll_fit_sec`, bench's name); the head's factors are 256 and 2
+    wide, below the LATRD kernels' 512, so no kernel may launch. FullLL on
+    the same head: 8 syrk launches at (128, 514), each recorded (H against
+    `syrk_plain` on its M, exactly symmetric, their sum the fit's H), its H
+    against a float64 GGN; syrk timed at (128, 514); DiagLL against FullLL's
+    diagonal; the GLM predictive `(f_mu, f_var)` on 8 sequences; then a
+    narrow twin in float64, KronLL and FullLL on the card against the CPU.
+    Keeps the KronLL for the serialization phase."""
+    import numpy as np
+    import torch
+
+    from laplace_jax_torch import DiagLLLaplace, FullLLLaplace, KronLLLaplace, Laplace
+    from laplace_jax_torch.ops.syrk import syrk, syrk_plain
+    from laplace_jax_torch.utils.data import ArrayLoader
+
+    t_start = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, REWARD_SIZES["vocab"], size=(REWARD_N, REWARD_SEQ))
+    y = rng.integers(0, 2, size=REWARD_N)
+    loader = ArrayLoader(ids, y, batch_size=REWARD_BATCH)
+    net = reward_transformer(seed, torch.float32, REWARD_SIZES)
+    res = dict(phase="reward", nvidia_smi=smi, config="bench.py reward_ll_fit",
+               model="RewardTransformer (4 blocks, d 256, 8 heads, MLP 1024, vocab 4096)",
+               n_data=REWARD_N, seq=REWARD_SEQ, batch=REWARD_BATCH, dtype="float32",
+               n_weights=sum(p.numel() for p in net.parameters()))
+
+    kron = Laplace(net, "reward_modeling", subset_of_weights="last_layer",
+                   hessian_structure="kron", device=device)
+    timed(res, "reward_ll_fit_warmup_sec", lambda: kron.fit(loader))
+    zero_launches()
+    timed(res, "reward_ll_fit_sec", lambda: (kron.fit(loader), kron.H.eigenvalues[0][0].cpu()))
+    res.update(kron_launches=kernel_launches(), kron_fit_seconds=dict(kron.fit_seconds),
+               last_layer=list(kron.last_layer_path), head_kind=kron._head_kind,
+               n_params=kron.n_params,
+               factor_sizes=sorted({int(H.shape[0]) for F in kron.H_facs.kfacs for H in F}),
+               kron_log_marglik=float(kron.log_marginal_likelihood()))
+    f_mu, f_var = timed(res, "kron_glm_8_sec", lambda: kron(ids[:8]))
+    res.update(glm_shapes=[list(f_mu.shape), list(f_var.shape)],
+               glm_finite=bool(torch.isfinite(f_mu).all() and torch.isfinite(f_var).all()),
+               glm_var_min_eig=float(torch.linalg.eigvalsh(f_var.double()).min()))
+
+    full = Laplace(net, "reward_modeling", "last_layer", "full", device=device)
+    zero_launches()
+    with SyrkTally() as tally:
+        timed(res, "full_fit_sec", lambda: full.fit(loader))
+    res["full_launches"] = kernel_launches()
+    per_launch = [dict(shape=list(M.shape), rel_err=rel_err(H, syrk_plain(M)),
+                       exactly_symmetric=bool(torch.equal(H, H.mT))) for M, H in tally.calls]
+    H_sum = tally.calls[0][1]
+    for _, H in tally.calls[1:]:
+        H_sum = H_sum + H
+    H64 = ll_ggn_f64(full, loader)
+    M = tally.calls[0][0]
+    bound_ms, bound_by = syrk_bound_ms(*M.shape, M.element_size(), F32_FLOPS)
+    res.update(syrk_per_launch=per_launch, fit_H_equals_sum_of_launches=bool(torch.equal(H_sum, full.H)),
+               full_H_rel_err_vs_f64=float((full.H.double() - H64).abs().max() / H64.abs().max()),
+               full_log_marglik=float(full.log_marginal_likelihood()),
+               syrk_128x514=dict(shape=list(M.shape), ms=cuda_ms(lambda: syrk(M), reps=50),
+                                 plain_ms=cuda_ms(lambda: syrk_plain(M), reps=50),
+                                 library_ms=cuda_ms(lambda: torch.mm(M.mT, M), reps=50),
+                                 bound_ms=bound_ms, bound_by=bound_by))
+    f_mu_full, f_var_full = full(ids[:8])
+    res["full_glm_finite"] = bool(torch.isfinite(f_mu_full).all() and torch.isfinite(f_var_full).all())
+
+    diag = Laplace(net, "reward_modeling", "last_layer", "diag", device=device)
+    timed(res, "diag_fit_sec", lambda: diag.fit(loader))
+    res.update(diag_H_rel_err_vs_full=rel_err(diag.H, torch.diagonal(full.H)),
+               diag_log_marglik=float(diag.log_marginal_likelihood()))
+
+    # float64 on a narrow twin: the card against the CPU, the same weights and data
+    ids64 = rng.integers(0, REWARD_NARROW["vocab"], size=(64, 16))
+    y64 = rng.integers(0, 2, size=64)
+    f64 = []
+    for dev in (device, torch.device("cpu")):
+        net64 = reward_transformer(seed, torch.float64, REWARD_NARROW)
+        outs = []
+        for cls in (KronLLLaplace, FullLLLaplace):
+            la64 = cls(net64, "reward_modeling", device=dev)
+            la64.fit(ArrayLoader(ids64, y64, batch_size=16))
+            H = (torch.cat([h.reshape(-1) for F in la64.H_facs.kfacs for h in F])
+                 if cls is KronLLLaplace else la64.H)
+            outs += [H.cpu(), la64.log_marginal_likelihood().cpu(),
+                     *[o.cpu() for o in la64(ids64[:8])]]
+        f64.append(outs)
+    res["f64_rel_err_card_vs_cpu"] = max(rel_err(a, b) for a, b in zip(*f64))
+    res["phase_s"] = time.perf_counter() - t_start
+    emit(res)
+
+    n_batches = -(-REWARD_N // REWARD_BATCH)
+    check(res["n_weights"] == REWARD_WEIGHTS,
+          f"the reward transformer has {res['n_weights']} weights, not {REWARD_WEIGHTS}")
+    check(isinstance(kron, KronLLLaplace) and isinstance(full, FullLLLaplace)
+          and isinstance(diag, DiagLLLaplace), "Laplace() gave the wrong last-layer classes")
+    check(res["last_layer"] == [f"Dense_{2 * REWARD_SIZES['blocks']}"]
+          and kron.n_params == REWARD_HEAD
+          and res["head_kind"] == "dense",
+          f"last layer {res['last_layer']} ({res['head_kind']}) with {kron.n_params} weights")
+    check(not any(res["kron_launches"].values()),
+          f"the KronLL fit launched kernels: {res['kron_launches']}")
+    check(res["full_launches"]["syrk"] == n_batches and len(per_launch) == n_batches,
+          f"the FullLL fit launched syrk {res['full_launches']['syrk']} times, not {n_batches}")
+    check(all(r["shape"] == [REWARD_BATCH * 2, REWARD_HEAD] for r in per_launch),
+          f"syrk calls {[r['shape'] for r in per_launch]}")
+    for r in per_launch:
+        check(r["rel_err"] <= SYRK_TOL["float32"],
+              f"reward syrk launch off syrk_plain by {r['rel_err']:.3e} > {SYRK_TOL['float32']}")
+        check(r["exactly_symmetric"], "a reward syrk launch is not exactly symmetric")
+    check(res["fit_H_equals_sum_of_launches"], "the FullLL H is not the sum of its launches' H")
+    check(res["full_H_rel_err_vs_f64"] <= GGN_TOL,
+          f"FullLL H off the float64 GGN by {res['full_H_rel_err_vs_f64']:.3e} > {GGN_TOL}")
+    check(res["diag_H_rel_err_vs_full"] <= DIAG_TOL,
+          f"DiagLL H off diag(FullLL H) by {res['diag_H_rel_err_vs_full']:.3e} > {DIAG_TOL}")
+    check(res["glm_shapes"] == [[8, 2], [8, 2, 2]] and res["glm_finite"] and res["full_glm_finite"],
+          f"the GLM predictive has shapes {res['glm_shapes']} or is not finite")
+    check(res["glm_var_min_eig"] > 0, "a GLM predictive covariance is not positive definite")
+    for name in ("kron_log_marglik", "full_log_marglik", "diag_log_marglik"):
+        check(math.isfinite(res[name]), f"{name} {res[name]} is not finite")
+    check(res["f64_rel_err_card_vs_cpu"] <= REWARD_F64_TOL,
+          f"float64 card vs CPU: {res['f64_rel_err_card_vs_cpu']:.3e} > {REWARD_F64_TOL}")
+    keep["reward_kron_ll"] = (kron, lambda: KronLLLaplace(net, "reward_modeling", device=device),
+                              ids[:8])
+    return {"syrk": res["full_launches"]["syrk"]}, res["syrk_128x514"]
+
+
+def serialization_phase(keep, device, smi, main_decompose_s):
+    """Each fitted object the earlier phases kept (`main`'s all-weights
+    `KronLaplace` on ResNet-18, `last_layer`'s FullLL and DiagLL, `reward`'s
+    KronLL, `functional`'s streamed GP, `subnet`'s `FullSubnetLaplace`)
+    saved to an archive in a temporary directory under `build/`, loaded
+    into a fresh instance on the card, and held against the saved object:
+    predictive and log marginal likelihood (bitwise reported), archive size,
+    save and load seconds. The Kron load decomposes its factors again: its
+    v1 and v4 launches are counted (35 and 108), its `H_facs` must come back
+    bit for bit, its eigenvalues within the float32 solver's limit of the
+    saved ones and of float64 `eigvalsh`."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from laplace_jax_torch.utils.device import full_f32
+
+    t_start = time.perf_counter()
+    res = dict(phase="serialization", nvidia_smi=smi, flavors={})
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    kron_launches = None
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        for name, (la, fresh, x) in keep.items():
+            r = {"class": type(la).__name__}
+            path = Path(tmp) / f"{name}.npz"
+            timed(r, "save_s", lambda: la.save(str(path)))
+            r["archive_mb"] = path.stat().st_size / 2**20
+            with np.load(path, allow_pickle=False) as data:
+                r["archive_entries"] = len(data.files)
+            ref = [o.detach() for o in outputs(la(x))]
+            ref_lml = float(la.log_marginal_likelihood())
+            if name == "main_kron":  # the same decompose at this point of the run, for scale
+                with full_f32():
+                    timed(r, "redecompose_saved_s", lambda: la.H_facs.decompose(damping=la.damping))
+            la2 = fresh()
+            zero_launches()
+            timed(r, "load_s", lambda: la2.load(str(path)))
+            r["launches"] = kernel_launches()
+            got = [o.detach() for o in outputs(la2(x))]
+            lml = float(la2.log_marginal_likelihood())
+            r.update(pred_rel_err=max(rel_err(g, e) for g, e in zip(got, ref)),
+                     pred_abs_err=max(float((g - e).abs().max()) for g, e in zip(got, ref)),
+                     pred_bitwise=all(torch.equal(g, e) for g, e in zip(got, ref)),
+                     log_marglik=lml, log_marglik_rel_err=abs(lml - ref_lml) / abs(ref_lml),
+                     log_marglik_bitwise=lml == ref_lml)
+            if name == "main_kron":
+                kron_launches = r["launches"]
+                r.update(H_facs_bitwise=all(torch.equal(a, b) for F1, F2 in
+                                            zip(la.H_facs.kfacs, la2.H_facs.kfacs)
+                                            for a, b in zip(F1, F2)),
+                         eig_rel_err_vs_saved=max(rel_err(b, a) for l1, l2 in
+                                                  zip(la.H.eigenvalues, la2.H.eigenvalues)
+                                                  for a, b in zip(l1, l2)),
+                         eig_rel_err_vs_eigh=kernel_eig_err(la2),
+                         decompose_s=la2.fit_seconds["decompose"],
+                         main_decompose_s=main_decompose_s)
+            res["flavors"][name] = r
+            path.unlink()
+            del la2
+    res["phase_s"] = time.perf_counter() - t_start
+    emit(res)
+
+    check(set(res["flavors"]) == {"main_kron", "last_layer_full", "last_layer_diag",
+                                  "reward_kron_ll", "functional_gp_streamed", "subnet_full"},
+          f"serialized {sorted(res['flavors'])}")
+    for name, r in res["flavors"].items():
+        if name == "main_kron":
+            check(r["launches"]["latrd_panel"] == MAIN_LAUNCHES["latrd_panel"]
+                  and r["launches"]["latrd_panel_v4"] == MAIN_LAUNCHES["latrd_panel_v4"],
+                  f"the Kron load launched {r['launches']}, not {MAIN_LAUNCHES}")
+            check(r["H_facs_bitwise"], "the loaded Kron factors differ from the saved ones")
+            check(r["eig_rel_err_vs_saved"] <= EIG_TOL and r["eig_rel_err_vs_eigh"] <= EIG_TOL,
+                  f"loaded eigenvalues off by {r['eig_rel_err_vs_saved']:.3e} (saved), "
+                  f"{r['eig_rel_err_vs_eigh']:.3e} (eigvalsh) > {EIG_TOL}")
+            check(r["pred_abs_err"] <= KRON_LOAD_PRED_TOL,
+                  f"loaded Kron probit off by {r['pred_abs_err']:.3e} > {KRON_LOAD_PRED_TOL}")
+            check(r["log_marglik_rel_err"] <= KRON_LOAD_LML_TOL,
+                  f"loaded Kron marglik off by {r['log_marglik_rel_err']:.3e} > {KRON_LOAD_LML_TOL}")
+        else:
+            check(r["pred_rel_err"] <= LOAD_TOL and r["log_marglik_rel_err"] <= LOAD_TOL,
+                  f"loaded {name}: predictive off by {r['pred_rel_err']:.3e}, marglik by "
+                  f"{r['log_marglik_rel_err']:.3e} > {LOAD_TOL}")
+    return {k: kron_launches[k] for k in MAIN_LAUNCHES}
 
 
 def main() -> None:
@@ -1889,8 +2188,8 @@ def main() -> None:
     if args.gp_subnet_repeats:
         for rep in range(args.gp_subnet_repeats):
             emit(dict(phase="repeat", repetition=rep))
-            functional_phase(args.seed, device, smi)
-            subnet_phase(args.seed, device, smi)
+            functional_phase(args.seed, device, smi, {})
+            subnet_phase(args.seed, device, smi, {})
         return
     rows = [kernel_phase(*row, args.seed, device) for row in KERNELS]
     rows.append(syrk_phase(args.seed, device, _build.build_log("syrk")))
@@ -1898,10 +2197,11 @@ def main() -> None:
     # each kernel's launches from the path that runs it: v1 and v4 from the
     # all-weights main path, syrk from the last-layer FullLL fit, v3 and v2
     # from the eigensolvers phase
-    main = main_path(args.seed, device)
+    keep = {}  # fitted objects for the serialization phase
+    main = main_path(args.seed, device, keep)
     window_phase(rows, main["panels"], args.seed, device, smi)
     launches = dict(main["launches"])
-    ll_launches, full_syrk_ms = last_layer_phase(args.seed, device)
+    ll_launches, full_syrk_ms = last_layer_phase(args.seed, device, keep)
     launches.update(ll_launches)
     next(r for r in rows if r["name"] == "syrk")["main_path_ms"] = full_syrk_ms
     route_launches, route_panels = eigensolvers_phase(args.seed, device, main)
@@ -1911,13 +2211,19 @@ def main() -> None:
     by_path = {"marglik_training": marglik_training_phase(args.seed, device, smi),
                "regression": regression_phase(args.seed, device, smi)}
     # the GP path launches no kernel; the subnet path launches syrk once a batch
-    functional_phase(args.seed, device, smi)
-    by_path["subnet"], syrk_640x128 = subnet_phase(args.seed, device, smi)
+    functional_phase(args.seed, device, smi, keep)
+    by_path["subnet"], syrk_640x128 = subnet_phase(args.seed, device, smi, keep)
     next(r for r in rows if r["name"] == "syrk")["at_640x128"] = syrk_640x128
+    # the reward head's FullLL launches syrk once a batch; loading the
+    # all-weights Kron decomposes it again through v1 and v4
+    by_path["reward"], syrk_128x514 = reward_phase(args.seed, device, smi, keep)
+    next(r for r in rows if r["name"] == "syrk")["at_128x514"] = syrk_128x514
+    by_path["serialization"] = serialization_phase(keep, device, smi, main["decompose_s"])
 
     keys = ("name", "route", "source", "replaces", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
-    extra = ("main_path_ms", "route_ms", "stream_bound_ms", "ms_3x4608", "at_640x128")
+    extra = ("main_path_ms", "route_ms", "stream_bound_ms", "ms_3x4608", "at_640x128",
+             "at_128x514")
     print(json.dumps({"kernels": [dict({k: r[k] for k in keys}, launches=launches[r["name"]],
                                        **{k: r[k] for k in extra if k in r},
                                        launches_by_path={p: n[r["name"]] for p, n in by_path.items()

@@ -34,6 +34,8 @@ from laplace_jax_torch.utils import (
     RunningNLLMetric,
     expected_calibration_error,
     get_nll,
+    load_state_dict,
+    save_state_dict,
     validate,
 )
 
@@ -61,6 +63,8 @@ __all__ = [
     "expected_calibration_error",
     "get_nll",
     "validate",
+    "save_state_dict",
+    "load_state_dict",
     "FeatureReduction",
     "HessianStructure",
     "Likelihood",

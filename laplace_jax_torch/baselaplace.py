@@ -21,6 +21,10 @@ Kron, Full and Diag posteriors (port of `laplace_jax/baselaplace.py`).
   per-instance generator seeded 0 that advances with every use.
 - With `enable_backprop`, the predictive and the fitted mean keep their
   autograd graph.
+- `save`/`load` write and read the fitted state (`state_dict`) as one
+  pickle-free `.npz` archive in the JAX package's layout
+  (`utils/serialization.py`): an archive of either package loads in the
+  other. Loading a `KronLaplace` decomposes its factors again.
 
 Everything runs on `device`: CUDA unless the caller passes `device="cpu"`.
 Fits, marglik and the predictives run in full float32 (`utils/device.full_f32`);
@@ -31,6 +35,7 @@ from __future__ import annotations
 
 import math
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -44,6 +49,7 @@ from laplace_jax_torch.utils.flatten import parameters_to_vector
 from laplace_jax_torch.utils.linalg import invsqrt_precision, normal_samples
 from laplace_jax_torch.utils.matrix import Kron, KronDecomposed, broadcast_groups
 from laplace_jax_torch.utils.prior import fix_prior_prec_structure
+from laplace_jax_torch.utils.serialization import load_state_dict, save_state_dict
 
 __all__ = ["BaseLaplace", "ParametricLaplace", "KronLaplace", "FullLaplace", "DiagLaplace"]
 
@@ -125,6 +131,37 @@ class BaseLaplace:
         if is_one_shot:
             raise ValueError("train_loader must be re-iterable (not a one-shot iterator); "
                              "pass an ArrayLoader or a list of batches.")
+
+    # ---- persistence
+    def save(self, path: str) -> None:
+        """Write the fitted state to a pickle-free `.npz` archive (the
+        JAX package's `baselaplace.py:651-657`)."""
+        save_state_dict(self.state_dict(), path)
+
+    def load(self, path: str) -> "BaseLaplace":
+        """Load state saved by `save`, by either package, into this
+        compatible instance."""
+        self.load_state_dict(load_state_dict(path))
+        return self
+
+    def _check_state_type(self, state_dict: dict) -> None:
+        if self.__class__.__name__ != state_dict["cls_name"]:
+            raise ValueError("Loading a wrong Laplace type. Make sure `subset_of_weights` and"
+                             " `hessian_structure` are correct!")
+
+    def _state_value(self, v):
+        """A loaded entry on this Laplace's device and in its dtype: arrays
+        and tensors as tensors, `Kron` / `KronDecomposed` leaf by leaf;
+        anything else (None, a number) as it is."""
+        if isinstance(v, (np.ndarray, torch.Tensor)):
+            return self._float(v)
+        if isinstance(v, Kron):
+            return Kron([tuple(self._float(H) for H in F) for F in v.kfacs])
+        if isinstance(v, KronDecomposed):
+            return KronDecomposed([tuple(self._float(Q) for Q in Qs) for Qs in v.eigenvectors],
+                                  [tuple(self._float(lam) for lam in ls) for ls in v.eigenvalues],
+                                  self._float(v.deltas), damping=v.damping)
+        return v
 
     # ---- priors
     @property
@@ -552,6 +589,52 @@ class ParametricLaplace(BaseLaplace):
         if self.H is None:
             raise AttributeError("Laplace not fitted. Run fit() first.")
 
+    # ---- serialization
+    def state_dict(self) -> dict:
+        """The fitted state under the JAX package's keys
+        (`baselaplace.py:1043-1057`)."""
+        if self.H is None:
+            raise AttributeError("Laplace not fitted. Run fit() first.")
+        return {
+            "mean": self.mean,
+            "H": self.H,
+            "loss": self.loss,
+            "prior_mean": self.prior_mean,
+            "prior_precision": self.prior_precision,
+            "sigma_noise": self.sigma_noise,
+            "n_data": int(self.n_data),
+            "n_outputs": int(self.n_outputs),
+            "likelihood": str(self.likelihood),
+            "temperature": self.temperature,
+            "enable_backprop": self.enable_backprop,
+            "cls_name": self.__class__.__name__,
+        }
+
+    def load_state_dict(self, state_dict: dict) -> None:
+        """Load a `state_dict`, checked as the JAX package checks it
+        (`baselaplace.py:1059-1088`); arrays move to this device and dtype."""
+        self._check_state_type(state_dict)
+        if self.n_params is not None and len(state_dict["mean"]) != self.n_params:
+            raise ValueError("Attempting to load Laplace with different number of parameters "
+                             "than the model.")
+        if self.likelihood != state_dict["likelihood"]:
+            raise ValueError("Different likelihoods detected!")
+        if self.temperature != state_dict["temperature"]:
+            warnings.warn("Different `temperature` parameters detected.")
+        if self.enable_backprop != state_dict["enable_backprop"]:
+            warnings.warn("Different `enable_backprop` values.")
+        self.mean = self._state_value(state_dict["mean"])
+        self.H = self._state_value(state_dict["H"])
+        self.loss = self._state_value(state_dict["loss"])
+        self.prior_mean = state_dict["prior_mean"]
+        self.prior_precision = state_dict["prior_precision"]
+        self.sigma_noise = state_dict["sigma_noise"]
+        self.n_data = int(state_dict["n_data"])
+        self.n_outputs = int(state_dict["n_outputs"])
+        self.likelihood = state_dict["likelihood"]
+        self.temperature = state_dict["temperature"]
+        self.enable_backprop = state_dict["enable_backprop"]
+
 
 class KronLaplace(ParametricLaplace):
     """KFAC posterior precision (reference `baselaplace.py:1200`).
@@ -645,6 +728,24 @@ class KronLaplace(ParametricLaplace):
         BaseLaplace.prior_precision.fset(self, prior_precision)
         if self._prior_precision.shape[0] not in (1, self.n_layers):
             raise ValueError("Prior precision for Kron either scalar or per-layer.")
+
+    def state_dict(self) -> dict:
+        """The state with the undecomposed factors `H_facs` as `H`."""
+        if self.H_facs is None:
+            raise AttributeError("Laplace not fitted. Run fit() first.")
+        return dict(super().state_dict(), H=self.H_facs)
+
+    @full_f32()
+    def load_state_dict(self, state_dict: dict) -> None:
+        """Load the factors and decompose them again, as `fit` does (the
+        JAX package's `baselaplace.py:1364-1367`); `fit_seconds["decompose"]`
+        records the decomposition's wall time."""
+        super().load_state_dict(state_dict)
+        self.H_facs = self.H
+        t0 = time.perf_counter()
+        self.H = self.H_facs.decompose(damping=self.damping)
+        self._sync()
+        self.fit_seconds["decompose"] = time.perf_counter() - t0
 
 
 class FullLaplace(ParametricLaplace):

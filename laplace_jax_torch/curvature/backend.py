@@ -9,8 +9,10 @@ its KFAC cotangent is √2·I with the factors then scaled by 1/2, and its
 diagonal carries no Λ.
 
 With `last_layer_path` set, the model's trainable leaves are the last
-Dense layer's, the Jacobians are the closed-form φ⊗I of that layer, and
-KFAC taps that layer alone. With `subnetwork_indices` set, the Jacobians
+layer's and KFAC taps that layer alone; the Jacobians are the closed-form
+φ⊗I when that layer is a Dense (`last_layer_dense`), else the per-sample
+Jacobians over its leaves (the JAX package's `use_phi`,
+`laplace_jax/curvature/backend.py:240-258`). With `subnetwork_indices` set, the Jacobians
 hold only those columns of the canonical flat vector, in index order, so
 the dense GGN and its diagonal are the subnetwork's.
 """
@@ -40,13 +42,14 @@ class CurvatureBackend:
     likelihood, 'classification' or 'regression'."""
 
     def __init__(self, model, likelihood=Likelihood.CLASSIFICATION, last_layer_path=None,
-                 feature_reduction=None, subnetwork_indices=None):
+                 feature_reduction=None, subnetwork_indices=None, last_layer_dense: bool = True):
         if likelihood not in (Likelihood.REGRESSION, Likelihood.CLASSIFICATION):
             raise ValueError("Backend likelihood must be regression or classification.")
         self.model = model
         self.likelihood = likelihood
         self.last_layer_path = last_layer_path
         self.feature_reduction = feature_reduction
+        self.last_layer_dense = last_layer_dense
         self.subnetwork_indices = subnetwork_indices  # a long tensor, or None
         if likelihood == Likelihood.REGRESSION:
             self.lossfunc, self.factor = mse_sum, 0.5
@@ -86,10 +89,11 @@ class CurvatureBackend:
         return self.factor * self.lossfunc(f, y), H
 
     def _jacobians_dispatch(self, x, create_graph: bool = False):
-        """The closed-form last-layer Jacobians when a last layer is set,
-        else the full per-sample Jacobians; with `create_graph` both stay
-        differentiable (in the input, for `enable_backprop`)."""
-        if self.last_layer_path is not None:
+        """The closed-form last-layer Jacobians when the last layer is a
+        Dense, else the per-sample Jacobians over the trainable leaves; with
+        `create_graph` both stay differentiable (in the input, for
+        `enable_backprop`)."""
+        if self.last_layer_path is not None and self.last_layer_dense:
             return self.last_layer_jacobians(x, create_graph)
         return self.jacobians(x, create_graph)
 
@@ -128,7 +132,8 @@ class CurvatureBackend:
                 eye = torch.eye(C, dtype=fb.dtype, device=fb.device)
                 gs = torch.autograd.grad(fb, params, grad_outputs=eye,
                                          is_grads_batched=True, create_graph=create_graph)
-                row = torch.cat([to_flax_layout(g, lead=1).reshape(C, -1) for g in gs], 1)
+                row = torch.cat([to_flax_layout(g, s.layout, lead=1).reshape(C, -1)
+                                 for s, g in zip(self.model.leaf_specs, gs)], 1)
                 rows.append(row if idx is None else row[:, idx])
         with torch.set_grad_enabled(create_graph):
             f = self.model.apply(x)

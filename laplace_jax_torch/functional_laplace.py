@@ -13,6 +13,10 @@ that cache would exceed `_STREAMING_THRESHOLD_BYTES` (or with
 transient Jacobians, and the predictive recomputes them a batch at a time.
 K_MM, the Cholesky factors and the triangular solves are library calls:
 the JAX package runs no Pallas kernel on this path either.
+
+The state (`state_dict`, `save`/`load`) holds K_MM, Σ's Cholesky, the
+cached Jacobians and a streamed fit's SoD inputs under the JAX package's
+keys, so a loaded GP predicts without refitting.
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ from laplace_jax_torch.enums import (
     PriorStructure,
     TuningMethod,
 )
-from laplace_jax_torch.nnmodel import NNModel, batch_slice
+from laplace_jax_torch.nnmodel import NNModel, batch_slice, flax_module_name
 from laplace_jax_torch.utils.data import ArrayLoader, dataset_size
 from laplace_jax_torch.utils.device import full_f32
 from laplace_jax_torch.utils.sod import sod_indices
@@ -394,6 +398,71 @@ class FunctionalLaplace(BaseLaplace):
             self._log_det_ratio(prior_precision, sigma_noise)
             + self._scatter(prior_precision, sigma_noise))
 
+    # ---- serialization
+    def state_dict(self) -> dict:
+        """The fitted GP under the JAX package's keys
+        (`functional_laplace.py:592-627`); SoD inputs as arrays, no loader."""
+        sod_x = self._sod_x
+        if sod_x is not None and not all(torch.is_tensor(x) for x in sod_x):
+            sod_x = None
+        return {
+            "mean": self.mean,
+            "num_data": self.n_subset,
+            "diagonal_kernel": self.independent_outputs,
+            "seed": self.seed,
+            "K_MM": self.K_MM,
+            "Sigma_chol": self.Sigma_chol,
+            "Js_M": self.Js_M,
+            "_sod_x": sod_x,
+            "_prior_factor_sod": self._prior_factor_sod,
+            "_fitted": self._fitted,
+            "_recompute_Sigma": self._recompute_Sigma,
+            "mu": self.mu,
+            "L": self.L,
+            "loss": self.loss,
+            "prior_mean": self.prior_mean,
+            "prior_precision": self.prior_precision,
+            "sigma_noise": self.sigma_noise,
+            "n_data": int(self.n_data),
+            "n_outputs": int(self.n_outputs),
+            "likelihood": str(self.likelihood),
+            "temperature": self.temperature,
+            "enable_backprop": self.enable_backprop,
+            "cls_name": self.__class__.__name__,
+        }
+
+    def load_state_dict(self, state_dict: dict) -> None:
+        """Load a `state_dict` (the JAX package's `functional_laplace.py:629-661`)."""
+        self._check_state_type(state_dict)
+        if self.likelihood != state_dict["likelihood"]:
+            raise ValueError("Different likelihoods detected!")
+        value = self._state_value
+        self.mean = value(state_dict["mean"])
+        self.n_subset = int(state_dict["num_data"])
+        self.independent_outputs = state_dict["diagonal_kernel"]
+        self.seed = state_dict["seed"]
+        self.K_MM = value(state_dict["K_MM"])
+        self.Sigma_chol = value(state_dict["Sigma_chol"])
+        self.Js_M = value(state_dict["Js_M"])
+        sod_x = state_dict.get("_sod_x")
+        self._sod_x = None if sod_x is None else [self._tensor(x) for x in sod_x]
+        self._prior_factor_sod = state_dict["_prior_factor_sod"]
+        self._fitted = state_dict["_fitted"]
+        self.mu = value(state_dict["mu"])
+        self.L = value(state_dict["L"])
+        self.loss = value(state_dict["loss"])
+        self.prior_mean = state_dict["prior_mean"]
+        self.prior_precision = state_dict["prior_precision"]
+        # after the prior: its setter asks for a new Cholesky, which would
+        # throw the saved one away
+        self._recompute_Sigma = state_dict["_recompute_Sigma"]
+        self.sigma_noise = state_dict["sigma_noise"]
+        self.n_data = int(state_dict["n_data"])
+        self.n_outputs = int(state_dict["n_outputs"])
+        self.likelihood = state_dict["likelihood"]
+        self.temperature = state_dict["temperature"]
+        self.enable_backprop = state_dict["enable_backprop"]
+
     @BaseLaplace.prior_precision.setter
     def prior_precision(self, prior_precision):
         """Changing the prior invalidates the Cholesky factor (reference
@@ -424,10 +493,14 @@ class FunctionalLaplace(BaseLaplace):
 
 
 class FunctionalLLLaplace(FunctionalLaplace):
-    """GP inference on the last layer's closed-form Jacobians, the features
-    as GP inputs (reference `lllaplace.py:509-641`). `last_layer_name` is
-    the head's torch module name; None finds the last Dense layer on the
-    first fit batch."""
+    """GP inference on the last layer's Jacobians (reference
+    `lllaplace.py:509-641`). `last_layer_name` is the head's torch module
+    name; None finds the head on the first fit batch as `LLLaplace` does.
+    The head's kind comes from a probe of that batch's first input
+    (`data`): a Dense head has the closed-form φ⊗I Jacobians, with the
+    features as GP inputs; any other takes the per-sample Jacobians over
+    its leaves. (The JAX package's `FunctionalLLLaplace` takes φ⊗I on every
+    head.)"""
 
     _key = ("last_layer", "gp")
 
@@ -443,25 +516,49 @@ class FunctionalLLLaplace(FunctionalLaplace):
                          independent_outputs, seed, device=device)
         self._full_model = self.model
         self.feature_reduction = feature_reduction
+        self._last_layer_name = last_layer_name
         self.last_layer_path = None
+        self.data = None  # the probe: the first fit batch's first input
         if last_layer_name is not None:
             self._set_last_layer(tuple(last_layer_name.split(".")))
 
     def _set_last_layer(self, path: tuple) -> None:
-        """Restrict the model to the last layer's leaves and rebuild the
-        backend on its closed-form Jacobians."""
+        """Restrict the model to the last layer's leaves, take its kind from
+        the probe (`dense` until there is one) and rebuild the backend."""
         trainable = self._full_model.split_last_layer(path)
         self.last_layer_path = path
         self.model = NNModel(self._full_model.module, trainable=trainable)
         self.n_params = self.model.n_params
         self.n_layers = self.model.n_layers
         self.mean = self.model.mean_vector
+        self._head_kind = self._full_model.head_kind(path, self.data)
         self.backend = CurvatureBackend(self.model, self._backend_likelihood,
                                         last_layer_path=path,
-                                        feature_reduction=self.feature_reduction)
+                                        feature_reduction=self.feature_reduction,
+                                        last_layer_dense=self._head_kind == "dense")
 
     def fit(self, train_loader) -> None:
-        if self.last_layer_path is None:
+        """Probe the first batch, if there is no probe yet, to find the head
+        and its kind, then fit."""
+        if self.data is None:
             X, _ = self._unpack_batch(next(iter(train_loader)))
-            self._set_last_layer(self._full_model.find_last_layer(self._tensor(X)))
+            self.data = batch_slice(self._tensor(X), slice(0, 1))
+            self._set_last_layer(self.last_layer_path
+                                 or self._full_model.find_last_layer(self.data))
         super().fit(train_loader)
+
+    def state_dict(self) -> dict:
+        """The GP state with the probe `data` and `_last_layer_name` (the JAX
+        package's `functional_laplace.py:718-722`)."""
+        return dict(super().state_dict(), data=self.data,
+                    _last_layer_name=flax_module_name(self._last_layer_name))
+
+    def load_state_dict(self, state_dict: dict) -> None:
+        if flax_module_name(self._last_layer_name) != state_dict["_last_layer_name"]:
+            raise ValueError("Different `last_layer_name` detected!")
+        data = state_dict["data"]
+        if data is not None and self.data is None:
+            self.data = self._tensor(data)
+            self._set_last_layer(self.last_layer_path
+                                 or self._full_model.find_last_layer(self.data))
+        super().load_state_dict(state_dict)

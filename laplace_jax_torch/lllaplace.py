@@ -1,14 +1,20 @@
-"""Last-layer Laplace approximations (port of `laplace_jax/lllaplace.py`,
-Dense heads), with the predictive surface of `baselaplace` (regression,
-links, joint, samples).
+"""Last-layer Laplace approximations (port of `laplace_jax/lllaplace.py`),
+with the predictive surface of `baselaplace` (regression, links, joint,
+samples) and `save`/`load`.
 
 The last layer is a parameter subset: the model keeps every weight in its
-forward, but only the last Dense layer's leaves are trainable
-(`NNModel(module, trainable=...)`), the Jacobians are that layer's
-closed-form φ⊗I, and KFAC taps that layer alone. With no
-`last_layer_name`, the last executed Dense layer is found on the first fit
-batch, as in the reference (`lllaplace.py:142-160`); until then `n_params`
-is None and the prior waits.
+forward, but only the head's leaves are trainable
+(`NNModel(module, trainable=...)`), and KFAC taps that layer alone. With no
+`last_layer_name`, the head is found on the first fit batch, as in the
+reference (`lllaplace.py:142-160`): the last executed Dense, else the last
+executed conv, DenseGeneral or norm layer (`NNModel.find_last_layer`);
+until then `n_params` is None and the prior waits. The head's kind
+(`_head_kind`) comes from a probe of that batch's first input (`data`),
+also when `last_layer_name` is given. A Dense head has the closed-form φ⊗I
+Jacobians and the fast diagonal predictive; any other head takes the
+per-sample Jacobians over its leaves and the sampled forward of the whole
+network. KFAC covers a Dense head and a 2-D conv head (the port's taps);
+`KronLLLaplace` on any other head raises `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -18,7 +24,7 @@ import torch
 from laplace_jax_torch.baselaplace import DiagLaplace, FullLaplace, KronLaplace, ParametricLaplace
 from laplace_jax_torch.curvature.backend import CurvatureBackend
 from laplace_jax_torch.enums import FeatureReduction
-from laplace_jax_torch.nnmodel import NNModel
+from laplace_jax_torch.nnmodel import NNModel, batch_slice, flax_module_name, kfac_tap
 
 __all__ = ["LLLaplace", "FullLLLaplace", "KronLLLaplace", "DiagLLLaplace"]
 
@@ -45,7 +51,10 @@ class LLLaplace(ParametricLaplace):
                          enable_backprop, dict_key_x, dict_key_y, device=device, **kwargs)
         self._full_model = self.model
         self.feature_reduction = feature_reduction
+        self._last_layer_name = last_layer_name
         self.last_layer_path = None
+        self.data = None  # the probe: the first fit batch's first input
+        self._head_kind = "dense"
         self._deferred_prior = (prior_precision, prior_mean)
         self.mean = None
         self.n_params = self.n_layers = None
@@ -53,28 +62,40 @@ class LLLaplace(ParametricLaplace):
             self._set_last_layer(tuple(last_layer_name.split(".")))
 
     def _set_last_layer(self, path: tuple) -> None:
-        """Restrict the model to the last layer's leaves, rebuild the
-        backend, and apply the prior given at construction."""
+        """Restrict the model to the last layer's leaves, take its kind from
+        the probe (`dense` until there is one), rebuild the backend, and
+        apply the prior given at construction."""
         trainable = self._full_model.split_last_layer(path)
         self.last_layer_path = path
         self.model = NNModel(self._full_model.module, trainable=trainable)
         self.n_params = self.model.n_params
         self.n_layers = self.model.n_layers
+        self._head_kind = self._full_model.head_kind(path, self.data)
         self.backend = CurvatureBackend(self.model, self._backend_likelihood,
                                         last_layer_path=path,
-                                        feature_reduction=self.feature_reduction)
+                                        feature_reduction=self.feature_reduction,
+                                        last_layer_dense=self._head_kind == "dense")
         self.prior_precision, self.prior_mean = self._deferred_prior
         self.mean = self.prior_mean
 
     def fit(self, train_loader, override: bool = True) -> None:
-        """Find the last layer on the first batch if needed, then fit
-        (reference `lllaplace.py:162-210`)."""
+        """Find the last layer on the first batch if needed, resolve the
+        head's kind from a probe of that batch, then fit (reference
+        `lllaplace.py:162-210`; the JAX package's `lllaplace.py:118-160`)."""
         if not override:
             raise ValueError("Last-layer Laplace approximations do not support "
                              "`override=False`.")
         if self.last_layer_path is None:
             X, _ = self._unpack_batch(next(iter(train_loader)))
-            self._set_last_layer(self._full_model.find_last_layer(self._tensor(X)))
+            self.data = batch_slice(self._tensor(X), slice(0, 1))
+            self._set_last_layer(self._full_model.find_last_layer(self.data))
+        elif self.data is None:
+            X, _ = self._unpack_batch(next(iter(train_loader)))
+            self.data = batch_slice(self._tensor(X), slice(0, 1))
+            if self._full_model.head_kind(self.last_layer_path, self.data) != self._head_kind:
+                pp, pm = self.prior_precision, self.prior_mean
+                self._set_last_layer(self.last_layer_path)
+                self.prior_precision, self.prior_mean = pp, pm
         super().fit(train_loader, override=True)
 
     def _features(self, x):
@@ -98,14 +119,18 @@ class LLLaplace(ParametricLaplace):
 
     def functional_variance_fast(self, x):
         """f (batch, classes) and the diagonal output variance (batch,
-        classes); the flavors below compute it without the Jacobians."""
+        classes); the flavors below compute it without the Jacobians on a
+        Dense head."""
         f_mu, f_var = super()._glm_predictive_distribution(x)
         return f_mu, torch.diagonal(f_var, dim1=-2, dim2=-1)
 
     def _nn_functional_samples(self, x, n_samples: int = 100, generator=None):
         """Sampled last-layer outputs (n_samples, batch, outputs): the
         features once, then the Dense head under each posterior sample of
-        its (bias, input-major kernel) leaves (reference `lllaplace.py:179-208`)."""
+        its (bias, input-major kernel) leaves (reference `lllaplace.py:179-208`);
+        any other head runs the whole network under each sample."""
+        if self._head_kind != "dense":
+            return ParametricLaplace._nn_functional_samples(self, x, n_samples, generator)
         _, phi = self._features(x)
         samples = self.sample(n_samples, generator=generator)
         d, k = next(s.shape for s in self.model.leaf_specs if s.path[-1] == "kernel")
@@ -115,6 +140,32 @@ class LLLaplace(ParametricLaplace):
         if bias is not None:
             fs = fs + bias.reshape((-1,) + (1,) * (fs.ndim - 2) + (k,))
         return fs if self.enable_backprop else fs.detach()
+
+    # ---- serialization
+    def state_dict(self) -> dict:
+        """The parametric state with the probe `data` and `_last_layer_name`
+        (the JAX package's `lllaplace.py:222-226`)."""
+        return dict(super().state_dict(), data=self.data,
+                    _last_layer_name=flax_module_name(self._last_layer_name))
+
+    def load_state_dict(self, state_dict: dict) -> None:
+        """Load the state. With no probe yet, take the saved one: it finds
+        the head when there is none, and gives the head its kind (the JAX
+        package's `lllaplace.py:228-245`, which restores the probe only to
+        find a head)."""
+        if "_last_layer_name" not in state_dict:
+            raise ValueError("Loading a wrong Laplace type. Make sure `subset_of_weights` "
+                             "and `hessian_structure` are correct!")
+        if flax_module_name(self._last_layer_name) != state_dict["_last_layer_name"]:
+            raise ValueError("Different `last_layer_name` detected!")
+        data = state_dict["data"]
+        if data is not None and self.data is None:
+            self.data = self._tensor(data)
+            self._set_last_layer(self.last_layer_path
+                                 or self._full_model.find_last_layer(self.data))
+        super().load_state_dict(state_dict)
+        self.n_params = self.model.n_params
+        self.n_layers = self.model.n_layers
 
 
 class FullLLLaplace(LLLaplace, FullLaplace):
@@ -128,6 +179,18 @@ class KronLLLaplace(LLLaplace, KronLaplace):
 
     _key = ("last_layer", "kron")
 
+    def _set_last_layer(self, path: tuple) -> None:
+        """As `LLLaplace._set_last_layer`, for a head the port's KFAC taps
+        cover (`nnmodel.kfac_tap`): a Dense or a 2-D conv."""
+        head = self._full_model.module.get_submodule(".".join(path))
+        if kfac_tap(head) is None:
+            raise NotImplementedError(
+                f"KronLLLaplace on a {type(head).__name__} head {path}: the port's KFAC taps "
+                "cover Dense and 2-D conv heads; KFAC for DenseGeneral, norm and 1-D conv "
+                "layers is still to port (ROADMAP.md §1 items 3 and 5). Use FullLLLaplace "
+                "or DiagLLLaplace.")
+        super()._set_last_layer(path)
+
     def functional_variance_fast(self, x):
         """Diagonal output variance in the Kron eigenbasis, without the
         Jacobians (the JAX package's `lllaplace.py:286-322`; the reference
@@ -135,7 +198,11 @@ class KronLLLaplace(LLLaplace, KronLaplace):
         `(QA⊗QB) D (QA⊗QB)ᵀ`:
 
         ``var[b, c] = Σ_ij (QAᵀφ_b)_i² QB[c, j]² / D_ij + var_bias[c]``
+
+        A non-Dense head takes the Jacobian route.
         """
+        if self._head_kind != "dense":
+            return LLLaplace.functional_variance_fast(self, x)
         f_mu, phi = self._features(x)
         pp = self.posterior_precision
         has_bias = self._has_bias()
@@ -157,7 +224,9 @@ class DiagLLLaplace(LLLaplace, DiagLaplace):
     def functional_variance_fast(self, x):
         """Diagonal output variance φ²·σ²_W + σ²_b, without the Jacobians
         (reference `lllaplace.py:489-506`); the kernel leaf is input-major
-        (d, k) after the bias."""
+        (d, k) after the bias. A non-Dense head takes the Jacobian route."""
+        if self._head_kind != "dense":
+            return LLLaplace.functional_variance_fast(self, x)
         f_mu, phi = self._features(x)
         k = f_mu.shape[-1]
         d = phi.shape[-1]

@@ -9,7 +9,9 @@ no padding of its own.
 
 `state_dict_from_flax` carries JAX parameters over: conv kernels
 `(kh, kw, in, out)` -> `(out, in, kh, kw)`, dense kernels `(in, out)` ->
-`(out, in)`.
+`(out, in)`; each leaf takes the layout of the torch module that owns it
+(`utils/flatten.weight_layout`), so 1-D convs and the flax-layout twins of
+`models/flax_layers.py` load too.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from laplace_jax_torch.ops.im2col import pad_input
-from laplace_jax_torch.utils.flatten import from_flax_layout
+from laplace_jax_torch.utils.flatten import from_flax_layout, weight_layout
 
 __all__ = ["Conv", "ResidualBlock", "ResNet", "ResNet18", "init_conv", "state_dict_from_flax"]
 
@@ -33,6 +35,8 @@ class Conv(nn.Module):
     on NCHW tensors (no bias by default, as the ResNet's convs). A bias is
     the flax leaf `bias`, zero at initialization, and its own KFAC group
     `(B,)`."""
+
+    tap_kind = "conv"  # weight (out, in, kh, kw), as nn.Conv2d
 
     def __init__(self, c_in: int, c_out: int, kernel_size: int, strides: int = 1,
                  init_scale: float = 1.0, use_bias: bool = False):
@@ -122,9 +126,10 @@ def _trunc_normal(t, std, generator):
     nn.init.trunc_normal_(t, 0.0, s, -2 * s, 2 * s, generator=generator)
 
 
-def state_dict_from_flax(params: Mapping) -> dict:
+def state_dict_from_flax(params: Mapping, module: nn.Module) -> dict:
     """A JAX parameter tree (nested dict of arrays, with or without the
-    top-level `'params'`) as a `state_dict` of the twin torch module."""
+    top-level `'params'`) as a `state_dict` of its twin torch `module`; each
+    kernel takes the layout of the submodule that owns it."""
     if "params" in params:
         params = params["params"]
     out = {}
@@ -136,7 +141,8 @@ def state_dict_from_flax(params: Mapping) -> dict:
                 continue
             a = torch.as_tensor(np.array(val))
             if key == "kernel":
-                a = from_flax_layout(a)
+                owner = module.get_submodule(".".join(prefix))
+                a = from_flax_layout(a, weight_layout(owner, "weight"))
                 key = "weight"
             out[".".join(prefix + (key,))] = a.contiguous()
 

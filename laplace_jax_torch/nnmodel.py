@@ -1,9 +1,10 @@
 """Model adapter with layer taps (port of `laplace_jax/nnmodel.py`, Dense
 and Conv taps, a trainable subset of leaves and the last-layer helpers).
 
-`apply_with_taps` plants a forward hook on every `nn.Linear`, on the
-port's own `Conv`, and on every `nn.Conv2d` with `groups == 1` and zero
-padding (grouped and circular convs are not tapped yet).
+`apply_with_taps` plants a forward hook on every layer the KFAC taps take
+(`kfac_tap`): a Dense (`nn.Linear`), the port's own `Conv`, and every
+`nn.Conv2d` with `groups == 1` and zero padding (grouped and circular convs
+are not tapped yet).
 The hook records the layer's input and adds a zero tensor that requires
 grad to the layer's output: the gradient with respect to that zero
 offset is the layer's output gradient, which KFAC needs for its B factor
@@ -11,7 +12,11 @@ offset is the layer's output gradient, which KFAC needs for its B factor
 interceptor, `laplace_jax/nnmodel.py:205-212`).
 
 A last layer is a module path such as `("Dense_0",)`; its leaves are the
-parameters whose module path is exactly that path.
+parameters whose module path is exactly that path. Discovery
+(`find_last_layer`) probes one input through the same hooks, planted on
+every layer of a kind the JAX package taps (`utils/flatten.layer_kind`, the
+one classification of layers): the last executed Dense, else the last
+executed conv, DenseGeneral, norm or embedding layer that has parameters.
 """
 
 from __future__ import annotations
@@ -24,15 +29,20 @@ from torch import nn
 
 from laplace_jax_torch.enums import FeatureReduction
 from laplace_jax_torch.models.resnet import Conv
-from laplace_jax_torch.utils.flatten import leaf_specs, parameters_to_vector, vector_to_parameters
+from laplace_jax_torch.utils.flatten import (
+    layer_kind,
+    leaf_specs,
+    parameters_to_vector,
+    vector_to_parameters,
+)
 
 
 @dataclass
 class LayerTap:
-    """One executed Dense / Conv layer."""
+    """One executed layer."""
 
     path: tuple  # module path, e.g. ("ResidualBlock_0", "Conv_0")
-    kind: str  # "dense" | "conv"
+    kind: str  # its `layer_kind`: "dense" | "conv" (KFAC), or any kind (a probe)
     inputs: torch.Tensor  # layer input (NCHW for convs)
     offset: torch.Tensor  # zero added to the output, requiring grad
     spec: Optional[dict] = None  # conv: kernel_size, strides, padding, dilation
@@ -65,6 +75,12 @@ def _module_path(name: str) -> tuple:
     return tuple(name.split(".")) if name else ()
 
 
+def flax_module_name(name: str | None) -> str | None:
+    """A torch module name (`"head.fc"`) as the JAX package writes a module
+    path (`"head/fc"`), as a saved state's `_last_layer_name` holds it."""
+    return None if name is None else name.replace(".", "/")
+
+
 def conv_spec(mod: nn.Module) -> Optional[dict]:
     """The patch spec (`ops/im2col.py` arguments) of a conv the KFAC taps
     take, or None. `nn.Conv2d` padding becomes (lo, hi) pairs: an int or a
@@ -83,6 +99,14 @@ def conv_spec(mod: nn.Module) -> Optional[dict]:
         pads = [(p, p) for p in mod.padding]
     return dict(kernel_size=mod.kernel_size, strides=mod.stride, padding=pads,
                 dilation=mod.dilation)
+
+
+def kfac_tap(mod: nn.Module) -> Optional[tuple]:
+    """`(kind, conv spec)` of a layer the KFAC taps take (a Dense, or a conv
+    with a `conv_spec`), else None."""
+    kind = layer_kind(mod)
+    spec = conv_spec(mod) if kind == "conv" else None
+    return (kind, spec) if kind == "dense" or spec is not None else None
 
 
 class NNModel:
@@ -119,10 +143,12 @@ class NNModel:
         return torch.func.functional_call(self.module,
                                           vector_to_parameters(theta, self.leaf_specs), (x,))
 
-    def apply_with_taps(self, x, paths=None):
+    def apply_with_taps(self, x, paths=None, every_kind: bool = False):
         """Forward pass returning `(f, taps)`, taps in execution order; each
         tapped output gets `+ zeros` requiring grad. With `paths` (a set of
-        module paths), only those layers are tapped."""
+        module paths), only those layers are tapped. The KFAC layers
+        (`kfac_tap`) are tapped; with `every_kind`, so is every other layer
+        that has a `layer_kind` (with no conv spec), as discovery needs."""
         taps: list[LayerTap] = []
 
         def make_hook(path, kind, spec):
@@ -138,11 +164,11 @@ class NNModel:
             path = _module_path(name)
             if paths is not None and path not in paths:
                 continue
-            spec = conv_spec(mod)
-            if spec is not None:
-                handles.append(mod.register_forward_hook(make_hook(path, "conv", spec)))
-            elif isinstance(mod, nn.Linear):
-                handles.append(mod.register_forward_hook(make_hook(path, "dense", None)))
+            tap = kfac_tap(mod)
+            if tap is None and every_kind and layer_kind(mod) is not None:
+                tap = (layer_kind(mod), None)
+            if tap is not None:
+                handles.append(mod.register_forward_hook(make_hook(path, *tap)))
         try:
             f = self.module(x)
         finally:
@@ -151,17 +177,41 @@ class NNModel:
         return f, taps
 
     # -- last layer ----------------------------------------------------------
-    def find_last_layer(self, x) -> tuple:
-        """Path of the last executed Dense layer, from a forward of `x[:1]`
-        (reference `baselaplace.py:947-951` probes the same way). Heads of
-        other kinds are not ported."""
+    def _probe_taps(self, x, paths=None) -> list[LayerTap]:
+        """The taps of every kind in a forward of `x[:1]` (reference
+        `baselaplace.py:947-951` probes the same way)."""
         with torch.no_grad():
-            _, taps = self.apply_with_taps(batch_slice(x, slice(0, 1)))
+            _, taps = self.apply_with_taps(batch_slice(x, slice(0, 1)), paths, every_kind=True)
+        return taps
+
+    def find_last_layer(self, x) -> tuple:
+        """Path of the head for last-layer Laplace: the last executed Dense
+        (the closed-form φ⊗I Jacobians); with none, the last executed layer
+        of another kind (conv, DenseGeneral, norm, embedding) that has
+        parameters, whose Jacobians are taken over its leaves (the JAX
+        package's `nnmodel.py:390-412`)."""
+        taps = self._probe_taps(x)
         dense = [t.path for t in taps if t.kind == "dense"]
-        if not dense:
-            raise ValueError("No Dense layer found for last-layer Laplace (non-Dense "
-                             "heads are not ported).")
-        return dense[-1]
+        if dense:
+            return dense[-1]
+        owned = {s.path[:-1] for s in leaf_specs(self.module)}
+        for t in reversed(taps):
+            if t.path in owned:
+                return t.path
+        raise ValueError("No Dense layer found for last-layer Laplace, and no other "
+                         "parameterized tapped layer (Conv/DenseGeneral/norm) to fall back to.")
+
+    def tap_kind(self, path: tuple, x) -> Optional[str]:
+        """The kind of the layer at `path` in a forward of `x[:1]`, or None if
+        it is not a tapped layer or does not run."""
+        taps = self._probe_taps(x, {tuple(path)})
+        return taps[0].kind if taps else None
+
+    def head_kind(self, path: tuple, data) -> str:
+        """The kind of the head at `path` from the probe `data`; "dense"
+        (the common head) while there is no probe, or for a layer of no
+        tapped kind, as the JAX package's `lllaplace.py:100-106` assumes."""
+        return (None if data is None else self.tap_kind(path, data)) or "dense"
 
     def last_layer_param_paths(self, last_layer_path: tuple) -> list[tuple]:
         """Flax leaf paths of the parameters under the last layer."""
@@ -172,12 +222,9 @@ class NNModel:
 
     def split_last_layer(self, last_layer_path: tuple) -> set:
         """The last layer's torch parameter names: the `trainable` set of a
-        last-layer model. The layer must be an `nn.Linear`."""
+        last-layer model. The layer may be of any kind; only a Dense head
+        gets the closed-form Jacobians."""
         self.last_layer_param_paths(last_layer_path)
-        mod = self.module.get_submodule(".".join(last_layer_path))
-        if not isinstance(mod, nn.Linear):
-            raise ValueError(f"Last layer {last_layer_path} is a {type(mod).__name__}; "
-                             "only Dense (nn.Linear) heads are ported.")
         return {s.name for s in leaf_specs(self.module) if s.path[:-1] == tuple(last_layer_path)}
 
     def apply_with_features(self, x, last_layer_path: tuple,

@@ -6,6 +6,7 @@ backend's Jacobians hold only those columns, so `FullSubnetLaplace`'s GGN
 is the `syrk` kernel's product of the subnetwork's (B·C, P_sub) rows, and
 `DiagSubnetLaplace`'s its diagonal. Samples are the MAP vector with the
 subnetwork's entries drawn from the posterior (`assemble_full_samples`).
+The state carries `subnetwork_indices`, checked on load.
 """
 
 from __future__ import annotations
@@ -103,6 +104,24 @@ class SubnetLaplace(ParametricLaplace):
         full = self.mean[None, :].expand(subnet_samples.shape[0], self.n_params).clone()
         full[:, self.subnetwork_indices] = subnet_samples
         return full
+
+    def state_dict(self) -> dict:
+        return dict(super().state_dict(), subnetwork_indices=self.subnetwork_indices)
+
+    def load_state_dict(self, state_dict: dict) -> None:
+        """Load a state fitted on the same index set (the JAX package's
+        `subnetlaplace.py:126-148`)."""
+        idx = state_dict.get("subnetwork_indices")
+        if idx is None:
+            raise ValueError("Loading a wrong Laplace type. Make sure `subset_of_weights` "
+                             "and `hessian_structure` are correct!")
+        idx = idx.cpu().numpy() if torch.is_tensor(idx) else np.asarray(idx)
+        mine = self.subnetwork_indices.cpu().numpy()
+        if idx.shape != mine.shape or not np.array_equal(idx, mine):
+            raise ValueError("Different `subnetwork_indices` detected! The posterior is "
+                             "only valid for the index set it was fitted with.")
+        super().load_state_dict({k: v for k, v in state_dict.items()
+                                 if k != "subnetwork_indices"})
 
     def sample(self, n_samples: int = 100, generator: torch.Generator | None = None):
         """Full parameter samples (n_samples, n_params): the MAP vector with

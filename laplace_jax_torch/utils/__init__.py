@@ -19,6 +19,7 @@ from laplace_jax_torch.utils.metrics import (
     get_nll,
 )
 from laplace_jax_torch.utils.prior import expand_prior_precision_sizes, fix_prior_prec_structure
+from laplace_jax_torch.utils.serialization import load_state_dict, save_state_dict
 from laplace_jax_torch.utils.validate import validate
 
 __all__ = [
@@ -43,4 +44,6 @@ __all__ = [
     "expand_prior_precision_sizes",
     "fix_prior_prec_structure",
     "validate",
+    "save_state_dict",
+    "load_state_dict",
 ]

@@ -137,7 +137,7 @@ def dict_pair():
     jm = JaxDictNet()
     params = jm.init(jax.random.key(0), {k: jnp.asarray(v[:1]) for k, v in data.items()})
     tm = DictNet().double()
-    tm.load_state_dict(state_dict_from_flax(params))
+    tm.load_state_dict(state_dict_from_flax(params, tm))
     return data, jm, params, tm
 
 
@@ -210,7 +210,7 @@ def reg_pair():
     jm = JaxMLP(hidden=(8,), out_dim=2, dtype=jnp.float64)
     params = jm.init(jax.random.key(0), jnp.asarray(X[:1]))
     tm = MLP(3, (8,), 2).double()
-    tm.load_state_dict(state_dict_from_flax(params))
+    tm.load_state_dict(state_dict_from_flax(params, tm))
     jla = JaxLaplace(JaxNNModel.from_flax(jm, params), "regression", "all", "full")
     tla = Laplace(tm, "regression", "all", "full", device="cpu")
     jla.fit(jdata.ArrayLoader(X, y, batch_size=8))
@@ -295,7 +295,7 @@ def test_gridsearch_chooses_the_prior_jax_chooses(likelihood, sub, hs):
     jm = JaxMLP(hidden=(8,), out_dim=2, dtype=jnp.float64)
     params = jm.init(jax.random.key(1), jnp.asarray(X[:1]))
     tm = MLP(3, (8,), 2).double()
-    tm.load_state_dict(state_dict_from_flax(params))
+    tm.load_state_dict(state_dict_from_flax(params, tm))
     jla = JaxLaplace(JaxNNModel.from_flax(jm, params), likelihood, sub, hs)
     tla = Laplace(tm, likelihood, sub, hs, device="cpu")
     jla.fit(jdata.ArrayLoader(X[:16], y[:16], batch_size=8))

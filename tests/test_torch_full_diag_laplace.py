@@ -52,7 +52,7 @@ def pair():
     params = jm.init(jax.random.key(1), jnp.asarray(X[:1]))
     params = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float64), params)
     tm = ResNet18(width=1).double()
-    tm.load_state_dict(state_dict_from_flax(params))
+    tm.load_state_dict(state_dict_from_flax(params, tm))
     return dict(X=X, y=y, jm=jm, params=params, tm=tm)
 
 

@@ -86,12 +86,12 @@ def models():
         jm = JaxMLP(hidden=(8,), out_dim=C, dtype=jnp.float64)
         params = _f64(jm.init(jax.random.key(C), jnp.asarray(X[:1])))
         tm = MLP(4, (8,), C).double()
-        tm.load_state_dict(state_dict_from_flax(params))
+        tm.load_state_dict(state_dict_from_flax(params, tm))
         out[name] = dict(jm=jm, params=params, tm=tm, X=X)
     jm = JaxLeNet(num_classes=3, dtype=jnp.float64)
     params = _f64(jm.init(jax.random.key(5), jnp.asarray(Xi[:1])))
     tm = LeNet(3, 1, 12).double()
-    tm.load_state_dict(state_dict_from_flax(params))
+    tm.load_state_dict(state_dict_from_flax(params, tm))
     out["lenet"] = dict(jm=jm, params=params, tm=tm, X=Xi)
     out["y"] = {"classification": y_cls, "reward_modeling": y_cls, "regression": y_reg}
     return out
@@ -238,7 +238,7 @@ def test_lenet_forward_matches_flax(size, classes):
     jm = JaxLeNet(num_classes=classes, dtype=jnp.float64)
     params = _f64(jm.init(jax.random.key(1), jnp.asarray(X[:1])))
     tm = LeNet(classes, 1, size).double()
-    tm.load_state_dict(state_dict_from_flax(params))
+    tm.load_state_dict(state_dict_from_flax(params, tm))
     assert [n for n, _ in tm.named_parameters()] == [
         f"{m}.{p}" for m in ("Conv_0", "Conv_1", "Dense_0", "Dense_1", "Dense_2")
         for p in ("weight", "bias")]

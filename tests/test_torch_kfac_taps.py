@@ -105,7 +105,7 @@ def _fit_pair(jm, tm_factory, X, y):
     params = jm.init(jax.random.key(1), jnp.asarray(X[:1]))
     params = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float64), params)
     tm = tm_factory().double()
-    tm.load_state_dict(state_dict_from_flax(params))
+    tm.load_state_dict(state_dict_from_flax(params, tm))
     jla = JaxKronLaplace(JaxNNModel.from_flax(jm, params), "classification")
     jla.fit(JaxLoader(X, y, batch_size=BATCH))
     tla = KronLaplace(tm, "classification", device="cpu")

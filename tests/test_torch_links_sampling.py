@@ -54,7 +54,7 @@ def _models(out_dim, seed):
     jm = JaxMLP(hidden=(8,), out_dim=out_dim, dtype=jnp.float64)
     params = jm.init(jax.random.key(seed), jnp.ones((1, 3)))
     tm = MLP(3, (8,), out_dim).double()
-    tm.load_state_dict(state_dict_from_flax(params))
+    tm.load_state_dict(state_dict_from_flax(params, tm))
     return jm, params, tm
 
 

@@ -65,7 +65,7 @@ def pair():
     params = jm.init(jax.random.key(0), jnp.asarray(X[:1]))
     params = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float64), params)
     tm = ResNet18(width=8).double()
-    tm.load_state_dict(state_dict_from_flax(params))
+    tm.load_state_dict(state_dict_from_flax(params, tm))
     return dict(X=X, y=y, jm=jm, params=params, tm=tm)
 
 
@@ -212,8 +212,10 @@ def test_explicit_last_layer_name(pair):
     assert la.H.shape == (650,)
     with pytest.raises(ValueError, match="No parameters"):
         FullLLLaplace(pair["tm"], "classification", last_layer_name="Dense_7", device="cpu")
-    with pytest.raises(ValueError, match="only Dense"):
-        FullLLLaplace(pair["tm"], "classification", last_layer_name="Conv_0", device="cpu")
+    # a conv head is a last layer too (its Jacobians over its leaves): the
+    # stem conv's 3x3x3x8 kernel, no bias
+    conv = FullLLLaplace(pair["tm"], "classification", last_layer_name="Conv_0", device="cpu")
+    assert conv.last_layer_path == ("Conv_0",) and conv.n_params == 216
     with pytest.raises(ValueError, match="override=False"):
         la.fit(ArrayLoader(pair["X"], pair["y"], batch_size=BATCH), override=False)
 

@@ -82,7 +82,7 @@ class BenchCNN(nn.Module):
 def _run(jm, tm_cls, X, y, seed, **kw):
     params = jm.init(jax.random.key(seed), jnp.asarray(X[:1]))
     tm = tm_cls().double()
-    tm.load_state_dict(state_dict_from_flax(params))
+    tm.load_state_dict(state_dict_from_flax(params, tm))
     j_la, j_nnm, j_ml, j_lo = jax_marglik_training(
         JaxNNModel.from_flax(jm, params), JaxLoader(X, y, batch_size=BATCH), **kw)
     t_la, t_m, t_ml, t_lo = marglik_training(tm, ArrayLoader(X, y, batch_size=BATCH),

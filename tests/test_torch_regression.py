@@ -53,14 +53,14 @@ def models():
     jm = JaxMLP(hidden=(8,), out_dim=2, dtype=jnp.float64)
     params = jm.init(jax.random.key(0), jnp.asarray(X[:1]))
     tm = MLP(3, (8,), 2).double()
-    tm.load_state_dict(state_dict_from_flax(params))
+    tm.load_state_dict(state_dict_from_flax(params, tm))
     out["mlp"] = dict(X=X, y=y, jm=jm, params=params, tm=tm)
     X, y = rng.standard_normal((N, 8, 8, 3)), rng.standard_normal((N, 1))
     jm = JaxResNet(stage_sizes=(1, 1), num_classes=1, width=2, dtype=jnp.float64)
     params = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float64),
                                     jm.init(jax.random.key(1), jnp.asarray(X[:1])))
     tm = ResNet((1, 1), num_classes=1, width=2).double()
-    tm.load_state_dict(state_dict_from_flax(params))
+    tm.load_state_dict(state_dict_from_flax(params, tm))
     out["resnet"] = dict(X=X, y=y, jm=jm, params=params, tm=tm)
     return out
 

@@ -86,12 +86,12 @@ def models():
         jm = JaxMLP(hidden=(8,), out_dim=C, dtype=jnp.float64)
         params = _f64(jm.init(jax.random.key(C), jnp.asarray(X[:1])))
         tm = MLP(4, (8,), C).double()
-        tm.load_state_dict(state_dict_from_flax(params))
+        tm.load_state_dict(state_dict_from_flax(params, tm))
         out[name] = dict(jnn=JaxNNModel.from_flax(jm, params), tm=tm, X=X)
     jm = JaxLeNet(num_classes=3, dtype=jnp.float64)
     params = _f64(jm.init(jax.random.key(5), jnp.asarray(Xi[:1])))
     tm = LeNet(3, 1, 12).double()
-    tm.load_state_dict(state_dict_from_flax(params))
+    tm.load_state_dict(state_dict_from_flax(params, tm))
     out["lenet"] = dict(jnn=JaxNNModel.from_flax(jm, params), tm=tm, X=Xi)
     return out
 
