@@ -37,7 +37,10 @@ Phases, each printing one JSON line; any failed check exits non-zero:
 4. reference - width-8 ResNet-18 fits in float64 on the card against the
              same fits on the CPU: all-weights KFAC (its 576 class runs the
              v1 kernel; LAPACK on the CPU) and last-layer Full (the float64
-             syrk kernel; the einsum on the CPU);
+             syrk kernel; the einsum on the CPU); then (`reference_backends`)
+             an EF KFAC fit of it and a `kron_unsupported="block"` fit of a
+             BatchNorm WideResNet-16 at widen 1, factors, marglik and probit
+             within 1e-12;
 5. main    - the main path at full width: `KronLaplace` on ResNet-18
              (width 64, 10 classes, 11.16M weights) over 512 CIFAR-10-shaped
              inputs in batches of 128, marglik prior tuning, and the GLM
@@ -129,13 +132,31 @@ Phases, each printing one JSON line; any failed check exits non-zero:
              and the marglik; `DiagSubnetLaplace` against the full H's
              diagonal; the DiagLaplace and SWAG variance masks timed; a
              float64 fit on the card against the CPU.
+12. backends - the curvature choices at full width, float32: on ResNet-18
+             and the main path's data, `KronLaplace` with the EF and with
+             the MC Fisher (35 v1 and 108 v4 panels each, eigenvalues against
+             float64 `eigvalsh`, marglik, probit), the all-weights
+             `DiagLaplace` through the layer taps (GGN and EF: peak device
+             memory against a limit from the tapped outputs' size, the
+             diagonal against the Jacobian path's on 4 inputs, 100 tuning
+             steps, probit), FullLL on the head with the Hessian (against the
+             GGN's H), the EF (against a float64 Σ g gᵀ) and the MC GGN;
+             WideResNet-16-4 with BatchNorm (2,750,682 weights, running
+             statistics from the seed, 512 inputs, batch 128):
+             `kron_unsupported="block"` (v1 and v4 launches against its
+             factor classes 576x4, 1152x4 and 2304x3, eigenvalues, its norm
+             blocks on the first batch against the exact GGN blocks of
+             those leaves and, block by block, both against float64),
+             "skip" (a warning, zero norm groups), "raise" (`ValueError`),
+             and `DiagLaplace` through the taps against the Jacobian path.
 The `last_layer` phase also runs the bridge, bridge_norm and MC links on
 its KronLL (rows sum to 1).
 
 Then the kernel summary line (with `main_path_ms`, `route_ms`,
 `stream_bound_ms` and v2's `ms_3x4608` where measured, and
 `launches_by_path`: each kernel's launches on the marglik_training,
-regression and subnet paths), the `nvidia-smi` line, and last
+regression, subnet, reward, backends and serialization paths), the
+`nvidia-smi` line, and last
 `{"ok": true, "device": {...}}`. Without a CUDA device, or outside the
 repository checkout, it exits non-zero and prints no result.
 
@@ -148,6 +169,7 @@ no result line.
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import math
 import re
@@ -561,6 +583,62 @@ def reference_phase(seed, device):
     check(res["full_ll_lml_rel_err"] <= 1e-8, "reference: FullLL marglik disagrees with the CPU fit")
     check(res["full_ll_pred_max_err"] <= 1e-8,
           "reference: FullLL predictive disagrees with the CPU fit")
+    reference_backends(seed, device)
+
+
+def reference_backends(seed, device):
+    """The curvature choices in float64, on the card against the CPU: an EF
+    `KronLaplace` on the width-8 ResNet-18 (its 576 class runs v1 on the
+    card) and a `kron_unsupported="block"` fit of a BatchNorm WideResNet-16
+    at widen 1 (its 576 class likewise, the norm blocks from the taps)."""
+    import numpy as np
+    import torch
+
+    from laplace_jax_torch import KronLaplace
+    from laplace_jax_torch.models.flax_layers import BatchNorm
+    from laplace_jax_torch.models.resnet import ResNet18
+    from laplace_jax_torch.models.wideresnet import WideResNet16x4
+    from laplace_jax_torch.ops.latrd import latrd_panel
+    from laplace_jax_torch.utils.data import ArrayLoader
+
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((32, 16, 16, 3))
+    y = rng.integers(0, 10, 32)
+    gen = torch.Generator().manual_seed(seed)
+    wrn = WideResNet16x4(10, 1, "batch", generator=gen).double()
+    with torch.no_grad():
+        for m in wrn.modules():
+            if isinstance(m, BatchNorm):
+                m.mean.copy_(0.1 * torch.randn(m.mean.shape, generator=gen, dtype=torch.float64))
+                m.var.add_(0.1 * torch.randn(m.var.shape, generator=gen,
+                                             dtype=torch.float64).abs())
+    fits = {"resnet18_w8_ef": (ResNet18(width=8, generator=gen).double(),
+                               dict(backend="ef")),
+            "wrn_w1_batchnorm_block": (wrn, dict(backend_kwargs={"kron_unsupported": "block"}))}
+    res = dict(phase="reference_backends", dtype="float64")
+    for name, (net, kw) in fits.items():
+        out = {}
+        for dev in ("cpu", device):
+            la = KronLaplace(net, "classification", device=dev, **kw)
+            v1 = latrd_panel.launches
+            la.fit(ArrayLoader(X, y, batch_size=16))
+            out[str(dev)] = (la.H_facs, float(la.log_marginal_likelihood()),
+                             la(X[:4]).cpu(), la.H._flat_eigs.cpu(), latrd_panel.launches - v1)
+        (F_c, l_c, p_c, e_c, _), (F_g, l_g, p_g, e_g, v1_g) = out["cpu"], out[str(device)]
+        res[name] = dict(
+            factors_rel_err=max(rel_err(a, b) for Fa, Fb in zip(F_g.kfacs, F_c.kfacs)
+                                for a, b in zip(Fa, Fb)),
+            lml_cpu=l_c, lml_gpu=l_g, lml_rel_err=abs(l_g - l_c) / abs(l_c),
+            pred_max_err=float((p_g - p_c).abs().max()), eig_rel_err=rel_err(e_g, e_c),
+            v1_launches=v1_g)
+    emit(res)
+    for name in fits:
+        r = res[name]
+        check(r["v1_launches"] > 0, f"reference {name} did not run the v1 kernel")
+        for key in ("factors_rel_err", "lml_rel_err", "pred_max_err"):
+            check(r[key] <= 1e-12, f"reference {name}: {key} {r[key]:.3e} > 1e-12")
+        check(r["eig_rel_err"] <= 1e-9, f"reference {name}: eigenvalues off by "
+                                        f"{r['eig_rel_err']:.3e}")
 
 
 def full_width(seed):
@@ -2051,6 +2129,315 @@ def reward_phase(seed, device, smi, keep):
     return {"syrk": res["full_launches"]["syrk"]}, res["syrk_128x514"]
 
 
+BACKEND_TOL = 1e-5  # float32 curvature against its reference, relative to the largest entry
+
+
+def expected_panels(kron) -> dict:
+    """The v1 and v4 panels `Kron.decompose` launches for a Kron's factor
+    classes on the card: one stack a class size n >= 512, cdiv(n - 2, 64)
+    panels a stack, v1 below 2304 and v4 from there (ops/tridiag.py's
+    window loop with nb = 64)."""
+    sizes = {int(H.shape[0]) for F in kron.kfacs for H in F if H.shape[0] >= 512}
+    out = {"latrd_panel": 0, "latrd_panel_v4": 0}
+    for n in sizes:
+        out["latrd_panel_v4" if n >= 2304 else "latrd_panel"] += -(-(n - 2) // 64)
+    return out
+
+
+def classes(kron) -> dict:
+    """{n: number of factors} over the classes n >= 512."""
+    out: dict = {}
+    for F in kron.kfacs:
+        for H in F:
+            if H.shape[0] >= 512:
+                out[int(H.shape[0])] = out.get(int(H.shape[0]), 0) + 1
+    return dict(sorted(out.items()))
+
+
+def jacobian_diag(be, x, y):
+    """The diagonal of the batch's curvature written out from per-sample
+    Jacobians (GGN) or gradients (EF), as the port's non-tap path takes it."""
+    import torch
+
+    if be.curv_type == "ef":
+        G, _ = be.gradients(x, y)
+        return be.factor * (G * G).sum(0)
+    Js, f = be.jacobians(x)
+    return torch.einsum("bcp,bck,bkp->p", Js, be._functional_hessian(f), Js)
+
+
+def tap_memory_limit(model, x1, C, batch):
+    """(limit, output gradients) in GiB: the peak device memory a
+    tap-diagonal fit in batches of `batch` may use, from its shapes. Four
+    times the K = C output gradients of one batch at every tapped layer
+    (the batched backward holds them, and about as much again in its
+    intermediates), the kernel-gradient chunk and its patches twice, and 2
+    GiB for the network, its inputs and the allocator."""
+    import torch
+
+    from laplace_jax_torch.curvature.diag_taps import CHUNK_BYTES
+
+    with torch.no_grad():
+        _, taps = model.apply_with_taps(x1, norm=True)
+    grads = C * batch * sum(t.offset.numel() for t in taps) * x1.element_size()
+    return (4 * grads + 2 * CHUNK_BYTES + (2 << 30)) / 2**30, grads / 2**30
+
+
+def wrn_batchnorm(seed, device):
+    """WideResNet-16-4 with BatchNorm (10 classes), random weights and
+    running statistics from `seed`, 512 CIFAR-10-shaped inputs in batches of
+    128, and 8 test inputs."""
+    import numpy as np
+    import torch
+
+    from laplace_jax_torch.models.flax_layers import BatchNorm
+    from laplace_jax_torch.models.wideresnet import WideResNet16x4
+    from laplace_jax_torch.utils.data import ArrayLoader
+
+    gen = torch.Generator().manual_seed(seed + 1)
+    net = WideResNet16x4(10, 4, "batch", generator=gen)
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, BatchNorm):
+                m.mean.copy_(0.1 * torch.randn(m.mean.shape, generator=gen))
+                m.var.copy_(1 + 0.1 * torch.randn(m.var.shape, generator=gen).abs())
+    rng = np.random.default_rng(seed + 1)
+    X = rng.standard_normal((512, 32, 32, 3)).astype(np.float32)
+    y = rng.integers(0, 10, size=512)
+    return net, ArrayLoader(X, y, batch_size=128), X[:8]
+
+
+def backends_phase(seed, device, smi):
+    """The curvature choices at full width, float32. ResNet-18 (the main
+    path's network and data): `KronLaplace` with the EF and with the MC
+    Fisher (v1 and v4 launches read from each fit, eigenvalues against
+    float64 `eigvalsh`, marglik, probit); the all-weights `DiagLaplace`
+    (GGN, and EF) through the layer taps, with its peak device memory
+    against a limit from its shapes and its diagonal against the Jacobian
+    path's on 4 inputs; FullLL on the head with the Hessian (against the
+    GGN's H: the head is linear in its weights), the EF (against a float64
+    Σ g gᵀ of the same gradients) and the MC GGN. WideResNet-16-4 with
+    BatchNorm: `KronLaplace(kron_unsupported="block")` (its launches against
+    its factor classes, its norm blocks on the first batch against the
+    exact GGN blocks of those leaves), 'skip' (a warning, zero norm groups)
+    and 'raise' (`ValueError`), and `DiagLaplace` through the taps."""
+    import torch
+
+    from laplace_jax_torch import DiagLaplace, KronLaplace, Laplace
+    from laplace_jax_torch.curvature.backend import CurvatureBackend
+    from laplace_jax_torch.nnmodel import NNModel
+    from laplace_jax_torch.utils.device import full_f32
+
+    t_start = time.perf_counter()
+    net, loader, X_test = full_width(seed)
+    x4, y4 = (torch.as_tensor(a[:4], device=device) for a in (loader.x, loader.y))
+    res = dict(phase="backends", nvidia_smi=smi, model="ResNet18(width=64, num_classes=10)",
+               n_data=512, batch=128, dtype="float32", kron={}, diag={}, full_ll={})
+    total = {"latrd_panel": 0, "latrd_panel_v4": 0}
+
+    def count(launches):
+        for k in total:
+            total[k] += launches[k]
+
+    # KronLaplace with the EF and the MC Fisher: one cotangent sweep a batch
+    for backend in ("ef", "mc"):
+        r = res["kron"][backend] = {}
+        la = KronLaplace(net, "classification", backend=backend, device=device)
+        zero_launches()
+        timed(r, "fit_s", lambda: la.fit(loader, generator=torch.Generator(
+            device=device).manual_seed(seed)))
+        r["launches"] = kernel_launches(*MAIN_LAUNCHES)
+        count(r["launches"])
+        probs = la(X_test[:8])
+        r.update(accumulate_s=la.fit_seconds["accumulate"],
+                 decompose_s=la.fit_seconds["decompose"], eig_rel_err_vs_eigh=kernel_eig_err(la),
+                 log_marglik=float(la.log_marginal_likelihood()),
+                 probit_finite=bool(torch.isfinite(probs).all()),
+                 probit_row_sum_err=float((probs.sum(-1) - 1).abs().max()))
+        del la
+
+    # the all-weights diagonal through the taps (GGN, then EF)
+    for backend in ("ggn", "ef"):
+        r = res["diag"][backend] = {}
+        la = DiagLaplace(net, "classification", backend=backend, device=device)
+        torch.cuda.reset_peak_memory_stats()
+        timed(r, "fit_s", lambda: la.fit(loader))
+        r["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
+        r["mem_limit_gb"], r["tap_grads_gb"] = tap_memory_limit(la.model, x4[:1], 10, 128)
+        with full_f32():
+            _, d_tap = la.backend.diag(x4, y4)
+            torch.cuda.reset_peak_memory_stats()
+            d_jac = jacobian_diag(la.backend, x4, y4)
+            r["jacobian_path_4_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
+        r["tap_vs_jacobian_4_rel_err"] = rel_err(d_tap, d_jac)
+        del d_jac
+        timed(r, "marglik_100_steps_s", lambda: la.optimize_prior_precision(n_steps=100))
+        probs = la(X_test[:8])
+        r.update(log_marglik=float(la.log_marginal_likelihood()),
+                 prior_precision=float(la.prior_precision[0]),
+                 probit_finite=bool(torch.isfinite(probs).all()),
+                 probit_row_sum_err=float((probs.sum(-1) - 1).abs().max()))
+        del la
+
+    # FullLL on the head (P_ll = 5130): the Hessian, the EF and the MC GGN
+    ggn = Laplace(net, "classification", "last_layer", "full", device=device)
+    ggn.fit(loader)
+    for backend in ("hessian", "ef", "mc"):
+        r = res["full_ll"][backend] = {}
+        la = Laplace(net, "classification", "last_layer", "full", backend=backend, device=device)
+        zero_launches()
+        timed(r, "fit_s", lambda: la.fit(loader, generator=torch.Generator(
+            device=device).manual_seed(seed)))
+        r["syrk_launches"] = kernel_launches("syrk")["syrk"]
+        H = la.H
+        r.update(finite=bool(torch.isfinite(H).all()), exactly_symmetric=bool(torch.equal(H, H.mT)),
+                 symmetry_rel_err=rel_err(H, H.mT), rel_dist_from_ggn=float(
+                     torch.linalg.norm(H.double() - ggn.H.double())
+                     / torch.linalg.norm(ggn.H.double())))
+        if backend == "hessian":
+            r["rel_err_vs_ggn"] = rel_err(H, ggn.H)
+        if backend == "ef":
+            H64 = None
+            with full_f32():
+                for X, y in loader:
+                    G, _ = la.backend.gradients(la._tensor(X), la._tensor(y))
+                    G = G.double()
+                    H64 = G.T @ G if H64 is None else H64 + G.T @ G
+            r["rel_err_vs_f64_ggt"] = rel_err(H, H64)
+        r["log_marglik"] = float(la.log_marginal_likelihood())
+        del la, H
+    del ggn
+
+    # WideResNet-16-4 with BatchNorm: the kron_unsupported policies
+    wnet, wloader, wX = wrn_batchnorm(seed, device)
+    w = res["wrn"] = dict(model='WideResNet16x4(10, widen_factor=4, norm="batch")')
+    la = KronLaplace(wnet, "classification", backend_kwargs={"kron_unsupported": "block"},
+                     device=device)
+    zero_launches()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        timed(w, "block_fit_s", lambda: la.fit(wloader))
+    w["block_launches"] = kernel_launches(*MAIN_LAUNCHES)
+    count(w["block_launches"])
+    w.update(n_params=la.n_params, block_warnings=[str(c.message)[:120] for c in caught
+                                                     if "zero curvature" in str(c.message)],
+             classes=classes(la.H_facs), expected_launches=expected_panels(la.H_facs),
+             accumulate_s=la.fit_seconds["accumulate"], decompose_s=la.fit_seconds["decompose"],
+             eig_rel_err_vs_eigh=kernel_eig_err(la),
+             log_marglik=float(la.log_marginal_likelihood()))
+    probs = la(wX)
+    w.update(probit_finite=bool(torch.isfinite(probs).all()),
+             probit_row_sum_err=float((probs.sum(-1) - 1).abs().max()))
+    specs = la.model.leaf_specs
+    norm = [s for s in specs if s.path[-1] == "scale" or (s.path[-1] == "bias"
+                                                           and "Norm" in s.path[-2])]
+    x0, y0 = (la._tensor(a) for a in next(iter(wloader)))
+    with full_f32():
+        _, k0 = la.backend.kron(x0, y0, 512)
+        idx = torch.cat([torch.arange(s.offset, s.offset + s.size) for s in norm]).to(device)
+        sub = CurvatureBackend(la.model, "classification", subnetwork_indices=idx)
+        timed(w, "norm_exact_ggn_s", lambda: sub.full(x0, y0))
+        _, H_sub = sub.full(x0, y0)
+    # the same blocks in float64 through the taps, which equal the float64
+    # GGN blocks (tests/test_torch_kron_norm.py): how far each float32 side is
+    # from them, block by block
+    net64 = copy.deepcopy(wnet).double()
+    _, k64 = CurvatureBackend(NNModel(net64), "classification", kron_unsupported="block").kron(
+        x0.double(), y0, 512)
+    worst, per_block, start = 0.0, {"taps": 0.0, "jacobian_ggn": 0.0}, 0
+    scale = float(H_sub.abs().max())
+    for s in norm:
+        blk, ref = k0.kfacs[specs.index(s)][0], H_sub[start:start + s.size, start:start + s.size]
+        blk64 = k64.kfacs[specs.index(s)][0]
+        worst = max(worst, float((blk - ref).abs().max()) / scale)
+        per_block["taps"] = max(per_block["taps"], rel_err(blk, blk64))
+        per_block["jacobian_ggn"] = max(per_block["jacobian_ggn"], rel_err(ref, blk64))
+        start += s.size
+    w.update(norm_leaves=len(norm), norm_params=start, norm_blocks_rel_err_vs_ggn=worst,
+             norm_blocks_per_block_rel_err_vs_f64=per_block)
+    del la, k0, k64, net64, H_sub, sub
+    skip = CurvatureBackend(NNModel(wnet), "classification")
+    with warnings.catch_warnings(record=True) as caught, full_f32():
+        warnings.simplefilter("always")
+        _, k_skip = skip.kron(x0, y0, 512)
+    d_skip = k_skip.diag()
+    w.update(skip_warned=any("zero curvature" in str(c.message) for c in caught),
+             skip_norm_diag_max=max(float(d_skip[s.offset:s.offset + s.size].abs().max())
+                                    for s in norm))
+    try:
+        with full_f32():
+            CurvatureBackend(skip.model, "classification", kron_unsupported="raise").kron(
+                x0, y0, 512)
+        w["raise_raised"] = None
+    except ValueError as exc:
+        w["raise_raised"] = type(exc).__name__
+    dla = DiagLaplace(wnet, "classification", device=device)
+    torch.cuda.reset_peak_memory_stats()
+    timed(w, "diag_fit_s", lambda: dla.fit(wloader))
+    w["diag_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    w["diag_mem_limit_gb"] = tap_memory_limit(dla.model, x0[:1], 10, 128)[0]
+    with full_f32():
+        _, d_tap = dla.backend.diag(x0[:4], y0[:4])
+        w["diag_tap_vs_jacobian_4_rel_err"] = rel_err(d_tap, jacobian_diag(dla.backend, x0[:4],
+                                                                         y0[:4]))
+    w["diag_log_marglik"] = float(dla.log_marginal_likelihood())
+    del dla
+    res["launches"] = total
+    res["phase_s"] = time.perf_counter() - t_start
+    emit(res)
+
+    for backend, r in res["kron"].items():
+        check(r["launches"] == MAIN_LAUNCHES,
+              f"{backend} Kron fit launched {r['launches']}, not {MAIN_LAUNCHES}")
+        check(r["eig_rel_err_vs_eigh"] <= EIG_TOL,
+              f"{backend} Kron eigenvalues off by {r['eig_rel_err_vs_eigh']:.3e} > {EIG_TOL}")
+        check(math.isfinite(r["log_marglik"]), f"{backend} Kron marglik is not finite")
+        check(r["probit_finite"] and r["probit_row_sum_err"] <= 1e-5,
+              f"{backend} Kron probit: {r}")
+    for backend, r in res["diag"].items():
+        check(r["peak_mem_gb"] <= r["mem_limit_gb"],
+              f"{backend} DiagLaplace fit peaked at {r['peak_mem_gb']:.2f} GiB > "
+              f"{r['mem_limit_gb']:.2f}")
+        check(r["tap_vs_jacobian_4_rel_err"] <= BACKEND_TOL,
+              f"{backend} tap diagonal off the Jacobian path by "
+              f"{r['tap_vs_jacobian_4_rel_err']:.3e} > {BACKEND_TOL}")
+        check(math.isfinite(r["log_marglik"]) and math.isfinite(r["prior_precision"])
+              and r["probit_finite"] and r["probit_row_sum_err"] <= 1e-5,
+              f"{backend} DiagLaplace after tuning: {r}")
+    for backend, r in res["full_ll"].items():
+        check(r["finite"] and r["symmetry_rel_err"] <= BACKEND_TOL and r["syrk_launches"] == 0,
+              f"FullLL {backend}: {r}")
+        check(math.isfinite(r["log_marglik"]), f"FullLL {backend} marglik is not finite")
+    check(res["full_ll"]["hessian"]["rel_err_vs_ggn"] <= BACKEND_TOL,
+          f"FullLL Hessian off the GGN by {res['full_ll']['hessian']['rel_err_vs_ggn']:.3e}")
+    check(res["full_ll"]["ef"]["rel_err_vs_f64_ggt"] <= BACKEND_TOL,
+          f"FullLL EF off float64 GᵀG by {res['full_ll']['ef']['rel_err_vs_f64_ggt']:.3e}")
+    check(w["n_params"] == 2_750_682, f"WRN-16-4 has {w['n_params']} weights, not 2750682")
+    check(w["classes"] == {576: 4, 1152: 4, 2304: 3}, f"WRN factor classes {w['classes']}")
+    check(w["block_launches"] == w["expected_launches"],
+          f"WRN block fit launched {w['block_launches']}, its classes give "
+          f"{w['expected_launches']}")
+    check(not w["block_warnings"], f"the block fit warned: {w['block_warnings']}")
+    check(w["eig_rel_err_vs_eigh"] <= EIG_TOL,
+          f"WRN eigenvalues off by {w['eig_rel_err_vs_eigh']:.3e} > {EIG_TOL}")
+    check(math.isfinite(w["log_marglik"]) and w["probit_finite"]
+          and w["probit_row_sum_err"] <= 1e-5, f"WRN block fit: {w}")
+    # relative to the largest entry of the norm leaves' GGN: block by block
+    # the float32 Jacobian path itself is 1e-5 to 5e-5 off float64
+    check(w["norm_blocks_rel_err_vs_ggn"] <= BACKEND_TOL,
+          f"WRN norm blocks off the exact GGN by {w['norm_blocks_rel_err_vs_ggn']:.3e}")
+    check(w["skip_warned"] and w["skip_norm_diag_max"] == 0.0,
+          f"WRN skip: warned {w['skip_warned']}, norm diagonal {w['skip_norm_diag_max']}")
+    check(w["raise_raised"] == "ValueError", f"WRN raise gave {w['raise_raised']}")
+    check(w["diag_tap_vs_jacobian_4_rel_err"] <= BACKEND_TOL,
+          f"WRN tap diagonal off the Jacobian path by {w['diag_tap_vs_jacobian_4_rel_err']:.3e}")
+    check(math.isfinite(w["diag_log_marglik"]), "WRN DiagLaplace marglik is not finite")
+    check(w["diag_peak_mem_gb"] <= w["diag_mem_limit_gb"],
+          f"WRN DiagLaplace fit peaked at {w['diag_peak_mem_gb']:.2f} GiB > "
+          f"{w['diag_mem_limit_gb']:.2f}")
+    return total
+
+
 def serialization_phase(keep, device, smi, main_decompose_s):
     """Each fitted object the earlier phases kept (`main`'s all-weights
     `KronLaplace` on ResNet-18, `last_layer`'s FullLL and DiagLL, `reward`'s
@@ -2218,6 +2605,8 @@ def main() -> None:
     # all-weights Kron decomposes it again through v1 and v4
     by_path["reward"], syrk_128x514 = reward_phase(args.seed, device, smi, keep)
     next(r for r in rows if r["name"] == "syrk")["at_128x514"] = syrk_128x514
+    # EF and MC Kron on ResNet-18 and the block Kron on WRN-16-4 launch v1 and v4
+    by_path["backends"] = backends_phase(args.seed, device, smi)
     by_path["serialization"] = serialization_phase(keep, device, smi, main["decompose_s"])
 
     keys = ("name", "route", "source", "replaces", "max_abs_err", "ms", "plain_ms",

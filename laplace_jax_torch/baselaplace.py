@@ -4,9 +4,11 @@ Kron, Full and Diag posteriors (port of `laplace_jax/baselaplace.py`).
 - `fit` accumulates per-batch curvature in a Python loop (the JAX
   package's `lax.scan`): KFAC factors, merged across online fits with the
   N-rescaled activation factor and then eigendecomposed (Kron); the dense
-  GGN through the `syrk` kernel (Full); the GGN diagonal (Diag). Batches are
-  `(X, y)` pairs or dicts (`dict_key_y` names the targets; the forward gets
-  the whole dict).
+  curvature (Full; the GGN through the `syrk` kernel); its diagonal (Diag;
+  the GGN's and EF's from the layer taps). The curvature is the `backend`:
+  the GGN, its MC estimate, the empirical Fisher or the exact Hessian
+  (`curvature/backend.py`). Batches are `(X, y)` pairs or dicts
+  (`dict_key_y` names the targets; the forward gets the whole dict).
 - The likelihood is 'classification', 'regression' (½·SSE loss, noise
   `sigma_noise`) or 'reward_modeling' (fitted as classification, predicted
   as regression unless `fitting=True`).
@@ -53,6 +55,10 @@ from laplace_jax_torch.utils.serialization import load_state_dict, save_state_di
 
 __all__ = ["BaseLaplace", "ParametricLaplace", "KronLaplace", "FullLaplace", "DiagLaplace"]
 
+# backend name -> (CurvatureBackend curv_type, stochastic)
+BACKENDS = {"ggn": ("ggn", False), "mc": ("ggn", True), "ef": ("ef", False),
+            "hessian": ("hessian", False)}
+
 
 def _requires_grad(x) -> bool:
     return torch.is_tensor(x) and x.requires_grad
@@ -60,11 +66,20 @@ def _requires_grad(x) -> bool:
 
 class BaseLaplace:
     """Base class (reference `baselaplace.py:77`). `model` is an `nn.Module`
-    taking the public input layout; it is moved to `device`."""
+    taking the public input layout; it is moved to `device`.
+
+    `backend` is the curvature: 'ggn' (the default), 'mc' (the GGN's MC
+    estimate), 'ef' (the empirical Fisher), 'hessian', or a factory
+    `f(model, likelihood, **backend_kwargs)` returning a `CurvatureBackend`;
+    `backend_kwargs` go to `CurvatureBackend` (`stochastic`, `num_samples`,
+    `kron_unsupported`, `kron_block_max_params`, `ef_chunk_size`). The
+    backend is built at its first use (`self.backend`).
+    """
 
     def __init__(self, model, likelihood, sigma_noise=1.0, prior_precision=1.0,
                  prior_mean=0.0, temperature: float = 1.0, enable_backprop: bool = False,
-                 dict_key_x: str = "input_ids", dict_key_y: str = "labels", device=None):
+                 dict_key_x: str = "input_ids", dict_key_y: str = "labels", backend=None,
+                 backend_kwargs: dict | None = None, device=None):
         if likelihood not in [lik.value for lik in Likelihood]:
             raise ValueError(f"Invalid likelihood type {likelihood}")
         self.device = resolve_device(device)
@@ -85,7 +100,32 @@ class BaseLaplace:
         self.n_outputs = 0
         self.n_data = 0
         self._generator = None
-        self.backend = CurvatureBackend(self.model, self._backend_likelihood)
+        self._backend = None
+        self._backend_arg = backend
+        self._backend_kwargs = dict(backend_kwargs or {})
+
+    @property
+    def backend(self) -> CurvatureBackend:
+        """The curvature backend, built at first use from `backend` and
+        `backend_kwargs` (the JAX package's `baselaplace.py:157-186`); code
+        that changes what it depends on sets `_backend` to None."""
+        if self._backend is None:
+            arg = "ggn" if self._backend_arg is None else self._backend_arg
+            likelihood = self._backend_likelihood
+            if isinstance(arg, str):
+                if arg not in BACKENDS:
+                    raise KeyError(f"Unknown backend {arg!r}; use one of {sorted(BACKENDS)} "
+                                   "or a factory.")
+                curv_type, stochastic = BACKENDS[arg]
+                kw = dict(self._backend_kwargs)
+                stochastic = kw.pop("stochastic", stochastic)
+                self._backend = CurvatureBackend(self.model, likelihood, curv_type=curv_type,
+                                                 stochastic=stochastic, **kw)
+            elif callable(arg):
+                self._backend = arg(self.model, likelihood, **self._backend_kwargs)
+            else:
+                raise ValueError(f"Invalid backend {arg}.")
+        return self._backend
 
     @property
     def _backend_likelihood(self):
@@ -403,10 +443,12 @@ class ParametricLaplace(BaseLaplace):
             torch.cuda.synchronize(self.device)
 
     @full_f32()
-    def fit(self, train_loader, override: bool = True) -> None:
+    def fit(self, train_loader, override: bool = True,
+            generator: torch.Generator | None = None) -> None:
         """Accumulate batch curvature over the loader (reference
         `baselaplace.py:709`, `_scan_accumulate` at `:814`); `n_outputs` comes
-        from a forward of the first batch's first input.
+        from a forward of the first batch's first input. An MC backend
+        draws from `generator`, else from this instance's generator.
         `fit_seconds["accumulate"]` records the loop's wall time."""
         self._check_loader(train_loader)
         if override:
@@ -426,9 +468,10 @@ class ParametricLaplace(BaseLaplace):
         self._sync()
         t0 = time.perf_counter()
         H = None
+        generator = self._rng(generator)
         for data in train_loader:
             X, y = self._unpack_batch(data)
-            loss_b, H_b = self._curv_closure(self._tensor(X), self._tensor(y), N)
+            loss_b, H_b = self._curv_closure(self._tensor(X), self._tensor(y), N, generator)
             self.loss = self.loss + loss_b
             H = H_b if H is None else H + H_b
         if H is None:
@@ -438,7 +481,7 @@ class ParametricLaplace(BaseLaplace):
         self.H = H if override or self.H is None else self.H + H
         self.n_data += N
 
-    def _curv_closure(self, x, y, N):
+    def _curv_closure(self, x, y, N, generator=None):
         raise NotImplementedError
 
     # ---- marglik
@@ -649,14 +692,16 @@ class KronLaplace(ParametricLaplace):
     def __init__(self, model, likelihood, sigma_noise=1.0, prior_precision=1.0,
                  prior_mean=0.0, temperature: float = 1.0, enable_backprop: bool = False,
                  dict_key_x: str = "input_ids", dict_key_y: str = "labels",
-                 damping: bool = False, device=None):
+                 damping: bool = False, backend=None, backend_kwargs: dict | None = None,
+                 device=None):
         self.damping = damping
         self.H_facs = None
         super().__init__(model, likelihood, sigma_noise, prior_precision, prior_mean,
-                         temperature, enable_backprop, dict_key_x, dict_key_y, device=device)
+                         temperature, enable_backprop, dict_key_x, dict_key_y, backend,
+                         backend_kwargs, device=device)
 
-    def _curv_closure(self, x, y, N):
-        return self.backend.kron(x, y, N)
+    def _curv_closure(self, x, y, N, generator=None):
+        return self.backend.kron(x, y, N, generator)
 
     @staticmethod
     def _rescale_factors(kron: Kron, factor) -> Kron:
@@ -664,7 +709,8 @@ class KronLaplace(ParametricLaplace):
         return Kron([(F[0] * factor, F[1]) if len(F) == 2 else F for F in kron.kfacs])
 
     @full_f32()
-    def fit(self, train_loader, override: bool = True) -> None:
+    def fit(self, train_loader, override: bool = True,
+            generator: torch.Generator | None = None) -> None:
         """Fit, then eigendecompose the factors; `fit_seconds["decompose"]`
         records the decomposition's wall time."""
         if override:
@@ -673,7 +719,7 @@ class KronLaplace(ParametricLaplace):
             n_old, n_new = self.n_data, dataset_size(train_loader)
             self.H_facs = self._rescale_factors(self.H_facs, n_old / (n_old + n_new))
         self.H = None  # the base fit leaves this fit's factors in H
-        super().fit(train_loader, override=override)
+        super().fit(train_loader, override=override, generator=generator)
         if self.H_facs is None:
             self.H_facs = self.H
         else:
@@ -758,12 +804,13 @@ class FullLaplace(ParametricLaplace):
 
     _key = ("all", "full")
 
-    def _curv_closure(self, x, y, N):
-        return self.backend.full(x, y, N)
+    def _curv_closure(self, x, y, N, generator=None):
+        return self.backend.full(x, y, N, generator)
 
-    def fit(self, train_loader, override: bool = True) -> None:
+    def fit(self, train_loader, override: bool = True,
+            generator: torch.Generator | None = None) -> None:
         self._posterior_scale = None
-        super().fit(train_loader, override=override)
+        super().fit(train_loader, override=override, generator=generator)
 
     @property
     def posterior_scale(self) -> torch.Tensor:
@@ -809,8 +856,8 @@ class DiagLaplace(ParametricLaplace):
 
     _key = ("all", "diag")
 
-    def _curv_closure(self, x, y, N):
-        return self.backend.diag(x, y, N)
+    def _curv_closure(self, x, y, N, generator=None):
+        return self.backend.diag(x, y, N, generator)
 
     @property
     def posterior_precision(self) -> torch.Tensor:

@@ -1,1 +1,23 @@
-"""Subpackage of the PyTorch port (see the package docstring)."""
+"""The curvature backend (port of `laplace_jax/curvature/`): GGN, MC Fisher,
+empirical Fisher and exact Hessian as full, diagonal and KFAC curvature."""
+
+from laplace_jax_torch.curvature.backend import (
+    CurvatureBackend,
+    EFBackend,
+    GGNBackend,
+    HessianBackend,
+    cross_entropy_sum,
+    mse_sum,
+)
+from laplace_jax_torch.curvature.kfac import conv_patches, kfac_factors
+
+__all__ = [
+    "CurvatureBackend",
+    "EFBackend",
+    "GGNBackend",
+    "HessianBackend",
+    "cross_entropy_sum",
+    "mse_sum",
+    "conv_patches",
+    "kfac_factors",
+]

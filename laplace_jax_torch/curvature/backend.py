@@ -1,31 +1,43 @@
-"""Curvature backend (port of `laplace_jax/curvature/backend.py`: the exact
-GGN as a full matrix, its diagonal and its KFAC factors, and the per-sample
-Jacobians of the GLM predictive).
+"""Curvature backend (port of `laplace_jax/curvature/backend.py`): the GGN
+(exact, or its MC estimate with `stochastic`), the empirical Fisher and the
+exact Hessian, each as a full matrix, a diagonal or KFAC factors; and the
+per-sample Jacobians and loss gradients they are built from.
 
 Loss conventions, as in the JAX package: regression uses the summed
 squared error with factor 1/2, classification the summed cross-entropy with
 factor 1. So the regression GGN is JᵀJ (the Hessian of ½·SSE in f is I),
 its KFAC cotangent is √2·I with the factors then scaled by 1/2, and its
-diagonal carries no Λ.
+diagonal carries no Λ. The EF and the Hessian are those of the summed loss,
+scaled by the factor (the regression EF is 2 Σ (f − y)² JᵀJ).
 
-With `last_layer_path` set, the model's trainable leaves are the last
-layer's and KFAC taps that layer alone; the Jacobians are the closed-form
-φ⊗I when that layer is a Dense (`last_layer_dense`), else the per-sample
-Jacobians over its leaves (the JAX package's `use_phi`,
-`laplace_jax/curvature/backend.py:240-258`). With `subnetwork_indices` set, the Jacobians
-hold only those columns of the canonical flat vector, in index order, so
-the dense GGN and its diagonal are the subnetwork's.
+With `last_layer` and `last_layer_path` set, the model's trainable leaves
+are the last layer's and KFAC taps that layer alone; the Jacobians are the
+closed-form φ⊗I when that layer is a Dense (`last_layer_dense`), else the
+per-sample Jacobians over its leaves (the JAX package's `use_phi`,
+`laplace_jax/curvature/backend.py:240-258`). With `subnetwork_indices` set,
+the Jacobians, gradients and Hessian hold only those entries of the
+canonical flat vector, in index order.
+
+The full GGN runs through the `syrk` kernel; the all-weights diagonal of the
+GGN and EF through the layer taps (`diag_taps.py`), with no (B, C, P) array.
+MC draws come from the caller's `torch.Generator` (`kfac.mc_draws`).
 """
 
 from __future__ import annotations
 
 import torch
+from torch.func import functional_call, grad, hessian, vmap
 
+from laplace_jax_torch.curvature import kfac
+from laplace_jax_torch.curvature.diag_taps import TapUnsupported, diag_curvature_taps
 from laplace_jax_torch.curvature.kfac import _sqrt_hessian_cotangents, kfac_factors
 from laplace_jax_torch.enums import Likelihood
 from laplace_jax_torch.nnmodel import batch_len, batch_slice
 from laplace_jax_torch.ops.syrk import syrk
-from laplace_jax_torch.utils.flatten import to_flax_layout
+from laplace_jax_torch.utils.flatten import to_flax_layout, vector_to_parameters
+
+__all__ = ["CurvatureBackend", "GGNBackend", "EFBackend", "HessianBackend", "mse_sum",
+           "cross_entropy_sum"]
 
 
 def mse_sum(f: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -38,62 +50,58 @@ def cross_entropy_sum(f: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 
 class CurvatureBackend:
-    """Exact-Fisher (GGN) curvature and Jacobians for one `NNModel` and a
-    likelihood, 'classification' or 'regression'."""
+    """Curvature for one `NNModel` and a likelihood, 'classification' or
+    'regression'.
 
-    def __init__(self, model, likelihood=Likelihood.CLASSIFICATION, last_layer_path=None,
-                 feature_reduction=None, subnetwork_indices=None, last_layer_dense: bool = True):
+    `curv_type` is 'ggn', 'ef' or 'hessian'; `stochastic` takes the GGN's
+    MC estimate with `num_samples` draws a sample; `kron_unsupported`
+    ('skip', 'block', 'raise') and `kron_block_max_params` set KFAC's policy
+    for leaves outside Dense and Conv layers (`kfac.py`); `ef_chunk_size`
+    is the samples per empirical-Fisher chunk (peak extra memory chunk·P;
+    None: about 64 MiB of gradients, clamped to [4, 128]).
+    """
+
+    def __init__(self, model, likelihood=Likelihood.CLASSIFICATION, curv_type: str = "ggn",
+                 stochastic: bool = False, num_samples: int = 1, last_layer: bool = False,
+                 last_layer_path=None, last_layer_dense: bool = True, feature_reduction=None,
+                 subnetwork_indices=None, kron_unsupported: str = "skip",
+                 kron_block_max_params: int = 8192, ef_chunk_size: int | None = None):
         if likelihood not in (Likelihood.REGRESSION, Likelihood.CLASSIFICATION):
             raise ValueError("Backend likelihood must be regression or classification.")
+        if curv_type not in ("ggn", "ef", "hessian"):
+            raise ValueError(f"Unknown curv_type {curv_type}.")
+        if kron_unsupported not in ("skip", "block", "raise"):
+            raise ValueError(f"kron_unsupported must be 'skip', 'block', or 'raise', got "
+                             f"{kron_unsupported!r}.")
+        if kron_block_max_params < 1:
+            raise ValueError(f"kron_block_max_params must be >= 1, got {kron_block_max_params}.")
+        if ef_chunk_size is not None and ef_chunk_size < 1:
+            raise ValueError(f"ef_chunk_size must be >= 1, got {ef_chunk_size}.")
         self.model = model
         self.likelihood = likelihood
+        self.curv_type = curv_type
+        self.stochastic = stochastic
+        self.num_samples = num_samples
+        self.last_layer = last_layer
         self.last_layer_path = last_layer_path
-        self.feature_reduction = feature_reduction
         self.last_layer_dense = last_layer_dense
+        self.feature_reduction = feature_reduction
         self.subnetwork_indices = subnetwork_indices  # a long tensor, or None
+        self.kron_unsupported = kron_unsupported
+        self.kron_block_max_params = kron_block_max_params
+        self.ef_chunk_size = ef_chunk_size
         if likelihood == Likelihood.REGRESSION:
             self.lossfunc, self.factor = mse_sum, 0.5
         else:
             self.lossfunc, self.factor = cross_entropy_sum, 1.0
 
-    def kron(self, x, y, N: int):
-        """KFAC factors of one batch as a `Kron`, with the batch loss; the
-        activation factor carries 1/N, so batches add."""
-        loss, kron = kfac_factors(self.model, x, y, N, self.lossfunc, self.last_layer_path,
-                                  self.likelihood)
-        return self.factor * loss, kron * self.factor
-
-    def full(self, x, y, N: int = 1):
-        """The batch's dense GGN `H = MᵀM` (P, P) by the `syrk` kernel, with
-        M (B*C, P) the Jacobian rows, weighted by Λ^{1/2} for
-        classification; and the batch loss (reference `backend.py:366-403`)."""
-        Js, f = self._jacobians_dispatch(x)
-        B, C, P = Js.shape
-        if self.likelihood == Likelihood.REGRESSION:
-            M = Js.reshape(B * C, P)
-        else:
-            S = _sqrt_hessian_cotangents(f)  # (C, B, C)
-            M = torch.einsum("cbk,bkp->bcp", S, Js).reshape(B * C, P)
-        return self.factor * self.lossfunc(f, y), syrk(M.contiguous())
-
-    def diag(self, x, y, N: int = 1):
-        """The batch's GGN diagonal (P,) from the Jacobians, and the batch
-        loss (reference `backend.py:451-463`)."""
-        Js, f = self._jacobians_dispatch(x)
-        if self.likelihood == Likelihood.REGRESSION:
-            H = torch.einsum("bcp,bcp->p", Js, Js)
-        else:
-            p = torch.softmax(f, dim=-1)
-            lam = torch.diag_embed(p) - p[:, :, None] * p[:, None, :]
-            H = torch.einsum("bcp,bck,bkp->p", Js, lam, Js)
-        return self.factor * self.lossfunc(f, y), H
-
+    # ---- Jacobians
     def _jacobians_dispatch(self, x, create_graph: bool = False):
         """The closed-form last-layer Jacobians when the last layer is a
         Dense, else the per-sample Jacobians over the trainable leaves; with
         `create_graph` both stay differentiable (in the input, for
         `enable_backprop`)."""
-        if self.last_layer_path is not None and self.last_layer_dense:
+        if self.last_layer and self.last_layer_dense:
             return self.last_layer_jacobians(x, create_graph)
         return self.jacobians(x, create_graph)
 
@@ -102,6 +110,8 @@ class CurvatureBackend:
         layer from its features φ: the bias block `I` first, then the
         input-major kernel block `J[b, c, i*C + o] = φ[b, i] δ_co`
         (reference `backend.py:209-238`); and f (batch, outputs)."""
+        if self.last_layer_path is None:
+            raise ValueError("last_layer_path not set on backend.")
         with torch.set_grad_enabled(create_graph):
             f, phi = self.model.apply_with_features(x, self.last_layer_path,
                                                     self.feature_reduction)
@@ -138,3 +148,216 @@ class CurvatureBackend:
         with torch.set_grad_enabled(create_graph):
             f = self.model.apply(x)
         return torch.stack(rows), f
+
+    # ---- gradients
+    def _loss_of_vector(self):
+        """(loss(t, x, y) of the flat vector or subvector t, t0): the summed
+        loss of a batch with the trainable leaves from t; with
+        `subnetwork_indices`, t is those entries and the rest stay at the
+        MAP (the JAX package's `_per_sample_grad_fn`)."""
+        theta = self.model.mean_vector
+        specs, idx = self.model.leaf_specs, self.subnetwork_indices
+        module = self.model.module
+
+        def loss(t, x, y):
+            full = t if idx is None else theta.index_copy(0, idx, t)
+            f = functional_call(module, vector_to_parameters(full, specs), (x,))
+            return self.lossfunc(f, y)
+
+        return loss, (theta if idx is None else theta[idx])
+
+    @torch.no_grad()
+    def _per_sample_grads(self, loss, t0, x, y) -> torch.Tensor:
+        """(batch, len(t0)) gradients by `torch.func`, whose transforms
+        differentiate under `no_grad` too; outside them nothing is recorded
+        (the frozen leaves still require grad)."""
+
+        def one(xi, yi):
+            return grad(loss)(t0, _expand(xi), _expand(yi))
+
+        return vmap(one)(x, y)
+
+    def gradients(self, x, y):
+        """Per-sample loss gradients (batch, n_params or n_indices) and the
+        batch loss (reference `curvature/curvature.py:169-210`)."""
+        loss, t0 = self._loss_of_vector()
+        Gs = self._per_sample_grads(loss, t0, x, y)
+        with torch.no_grad():
+            return Gs, self.lossfunc(self.model.apply(x), y)
+
+    def _ef_accumulate(self, x, y, mode: str):
+        """The empirical Fisher Σ GᵀG (full) or Σ G² (diag) of the per-sample
+        gradients, `ef_chunk_size` samples at a time, so peak memory is
+        chunk·P (plus P² for full); and the batch loss."""
+        loss, t0 = self._loss_of_vector()
+        P, B = t0.shape[0], batch_len(x)
+        chunk = self.ef_chunk_size or _default_ef_chunk(P, t0.element_size())
+        H = (torch.zeros(P, P, dtype=t0.dtype, device=t0.device) if mode == "full"
+             else torch.zeros(P, dtype=t0.dtype, device=t0.device))
+        for b0 in range(0, B, chunk):
+            sl = slice(b0, min(B, b0 + chunk))
+            G = self._per_sample_grads(loss, t0, batch_slice(x, sl), y[sl])
+            H += G.T @ G if mode == "full" else (G * G).sum(0)
+        with torch.no_grad():
+            return H, self.lossfunc(self.model.apply(x), y)
+
+    # ---- likelihood middles
+    def _functional_hessian(self, f):
+        """Λ = ∂²(−log lik)/∂f²: None (≡ I) for regression, diag(p) − ppᵀ
+        for classification (reference `curvature/curvature.py:366-373`)."""
+        if self.likelihood == Likelihood.REGRESSION:
+            return None
+        p = torch.softmax(f, dim=-1)
+        return torch.diag_embed(p) - p[:, :, None] * p[:, None, :]
+
+    def _mc_functional_fisher(self, f, generator):
+        """MC estimate (B, C, C) of E[∇f ∇fᵀ] under labels drawn from the
+        model (reference `curvature/curvature.py:341-364`)."""
+        draws = kfac.mc_draws(f, self.likelihood, self.num_samples, generator)
+        F = torch.zeros(f.shape[0], f.shape[-1], f.shape[-1], dtype=f.dtype, device=f.device)
+        p = torch.softmax(f, dim=-1)
+        for d in draws:
+            if self.likelihood == Likelihood.REGRESSION:
+                g = f - (f + d)
+            else:
+                g = p - torch.nn.functional.one_hot(d, f.shape[-1]).to(f.dtype)
+            F = F + g[:, :, None] * g[:, None, :] / self.num_samples
+        return F
+
+    # ---- full
+    def full(self, x, y, N: int = 1, generator: torch.Generator | None = None):
+        """Dense P x P curvature and the batch loss (reference
+        `curvature.py:375-411`, `:467-493`): the GGN `H = MᵀM` by the `syrk`
+        kernel, with M (B*C, P) the Jacobian rows weighted by Λ^{1/2} for
+        classification; its MC estimate; the EF; or the exact Hessian."""
+        if self.curv_type == "ef":
+            H, loss = self._ef_accumulate(x, y, "full")
+            return self.factor * loss, self.factor * H
+        if self.curv_type == "hessian":
+            return self._hessian(x, y)
+        Js, f = self._jacobians_dispatch(x)
+        if self.stochastic:
+            lam = self._mc_functional_fisher(f, generator)
+            H = torch.einsum("bcp,bck,bkq->pq", Js, lam, Js)
+        else:
+            B, C, P = Js.shape
+            if self.likelihood == Likelihood.REGRESSION:
+                M = Js.reshape(B * C, P)
+            else:
+                S = _sqrt_hessian_cotangents(f)  # (C, B, C)
+                M = torch.einsum("cbk,bkp->bcp", S, Js).reshape(B * C, P)
+            H = syrk(M.contiguous())
+        return self.factor * self.lossfunc(f, y), H
+
+    def _hessian(self, x, y):
+        """The exact Hessian of the summed loss in the flat vector (its
+        subnetwork block with `subnetwork_indices`), scaled by the factor."""
+        theta = self.model.mean_vector
+        specs, module = self.model.leaf_specs, self.model.module
+
+        def total_loss(t):
+            return self.lossfunc(functional_call(module, vector_to_parameters(t, specs), (x,)), y)
+
+        with torch.no_grad():  # the transforms differentiate all the same
+            H = hessian(total_loss)(theta)
+            loss = total_loss(theta)
+        if self.subnetwork_indices is not None:
+            H = H[self.subnetwork_indices][:, self.subnetwork_indices]
+        return self.factor * loss, self.factor * H
+
+    # ---- diag
+    def _can_use_taps(self) -> bool:
+        """The layer-tap diagonal needs the whole model (no subnetwork) and
+        every leaf named as a tapped layer's (the JAX package's rule;
+        `diag_taps` itself raises `TapUnsupported` for the rest)."""
+        if self.subnetwork_indices is not None:
+            return False
+        return all(s.path[-1] in ("kernel", "bias", "scale", "embedding")
+                   for s in self.model.leaf_specs)
+
+    def diag(self, x, y, N: int = 1, generator: torch.Generator | None = None):
+        """Diagonal curvature and the batch loss (reference
+        `curvature.py:413-433`, `:495-505`). The all-weights GGN and EF
+        diagonals come from the layer taps (`diag_taps.py`), with no
+        (B, C, P) Jacobian; otherwise from the Jacobians, the chunked
+        per-sample gradients (EF) or the Hessian."""
+        if (not self.stochastic and self.curv_type in ("ggn", "ef") and not self.last_layer
+                and self._can_use_taps()):
+            try:
+                loss, d = diag_curvature_taps(self.model, x, y, self.likelihood,
+                                              self.lossfunc, curv_type=self.curv_type)
+            except TapUnsupported:
+                pass  # a leaf outside the tapped layers: the exact paths below
+            else:
+                if self.curv_type == "ef":  # EF scales H; the GGN does not
+                    d = self.factor * d
+                return self.factor * loss, d
+        if self.curv_type == "ef":
+            d, loss = self._ef_accumulate(x, y, "diag")
+            return self.factor * loss, self.factor * d
+        if self.curv_type == "hessian":
+            loss, H = self.full(x, y, N)
+            return loss, torch.diagonal(H)
+        Js, f = self._jacobians_dispatch(x)
+        if self.stochastic:
+            lam = self._mc_functional_fisher(f, generator)
+        else:
+            lam = self._functional_hessian(f)
+        if lam is None:
+            H = torch.einsum("bcp,bcp->p", Js, Js)
+        else:
+            H = torch.einsum("bcp,bck,bkp->p", Js, lam, Js)
+        return self.factor * self.lossfunc(f, y), H
+
+    # ---- kron
+    def kron(self, x, y, N: int, generator: torch.Generator | None = None):
+        """KFAC factors of one batch as a `Kron`, with the batch loss; the
+        activation factor carries 1/N, so batches add (reference
+        `curvature/curvlinops.py:77-108`)."""
+        if self.curv_type == "hessian":
+            raise ValueError(
+                "KFAC with the exact Hessian is undefined; use a GGN/EF/MC backend (the "
+                "reference's Hessian backend has no kron either, "
+                "`curvature/curvlinops.py:183-188`).")
+        if self.curv_type == "ef":
+            fisher_type = "empirical"
+        elif self.stochastic:
+            fisher_type = "mc"
+        else:
+            fisher_type = "exact"
+        loss, kron = kfac_factors(
+            self.model, x, y, N, self.likelihood, self.lossfunc, fisher_type=fisher_type,
+            num_samples=self.num_samples, generator=generator,
+            last_layer_path=self.last_layer_path if self.last_layer else None,
+            unsupported=self.kron_unsupported, block_max_params=self.kron_block_max_params)
+        return self.factor * loss, kron * self.factor
+
+
+def _default_ef_chunk(P: int, itemsize: int = 4) -> int:
+    """Samples per EF chunk: about 64 MiB of per-sample gradients
+    (chunk · P · itemsize), clamped to [4, 128]."""
+    return max(4, min(128, (64 << 20) // max(P * itemsize, 1)))
+
+
+def _expand(v):
+    """Add back the batch dim that vmap removes (a tensor or a dict batch)."""
+    if isinstance(v, dict):
+        return {k: a[None] for k, a in v.items()}
+    return v[None]
+
+
+# -- the reference's named backends ---------------------------------------------
+
+
+def GGNBackend(model, likelihood, stochastic: bool = False, num_samples: int = 1,
+               **kw) -> CurvatureBackend:
+    return CurvatureBackend(model, likelihood, "ggn", stochastic=stochastic,
+                            num_samples=num_samples, **kw)
+
+
+def EFBackend(model, likelihood, **kw) -> CurvatureBackend:
+    return CurvatureBackend(model, likelihood, "ef", **kw)
+
+
+def HessianBackend(model, likelihood, **kw) -> CurvatureBackend:
+    return CurvatureBackend(model, likelihood, "hessian", **kw)

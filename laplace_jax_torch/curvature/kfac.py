@@ -1,15 +1,27 @@
-"""KFAC factors from layer taps (port of `laplace_jax/curvature/kfac.py`,
-exact Fisher, Dense and Conv layers).
+"""KFAC factors from layer taps (port of `laplace_jax/curvature/kfac.py`:
+Dense and Conv layers, the exact, MC and empirical Fisher, and the
+`unsupported` policies for leaves outside them).
 
 Normalization contract, as in the JAX package:
 
 - activation factor ``A = (1/(N*T)) sum_{n,t} a a^T`` (T = spatial positions
   of a conv's output; for Dense the positions between batch and feature
   axes, 1 on a 2-d input: "expand" KFAC);
-- gradient factor ``B = sum_{c} sum_{n,t} g g^T`` over the C square-root
-  Hessian cotangent sweeps, a per-batch sum;
+- gradient factor ``B = sum_s w_s sum_{n,t} g g^T`` over the cotangent
+  sweeps s: the C square-root Hessian columns (exact, w = 1), sampled labels
+  (MC, w = 1/num_samples) or the labels themselves (empirical, one sweep);
 - a kernel leaf is the group ``(A, B)`` (input-major ``A kron B`` under the
   flax flatten), a bias leaf the group ``(B,)``.
+
+A leaf outside the tapped Dense and Conv layers follows `unsupported`:
+``"skip"`` gives it a zero group and warns (the posterior keeps the prior
+there); ``"block"`` gives it the exact dense 1-factor block, from the same
+sweeps through the norm taps for a norm twin's `scale` and `bias`, else
+from per-sample backward passes through the leaf when it has at most
+`block_max_params` entries; ``"raise"`` raises `ValueError`. A leaf of a
+DenseGeneral, Embed or untapped conv, which the JAX package factors and the
+port cannot yet, raises `NotImplementedError` under ``"block"`` and
+``"raise"`` (`ROADMAP.md` §1 item 5).
 """
 
 from __future__ import annotations
@@ -20,11 +32,12 @@ import warnings
 import torch
 
 from laplace_jax_torch.enums import Likelihood
+from laplace_jax_torch.nnmodel import batch_len, batch_slice, kfac_tap
 from laplace_jax_torch.ops.im2col import im2col
+from laplace_jax_torch.utils.flatten import layer_kind, to_flax_layout
 from laplace_jax_torch.utils.matrix import Kron
 
-__all__ = ["kfac_factors", "conv_patches"]
-
+__all__ = ["kfac_factors", "conv_patches", "mc_draws"]
 
 def conv_patches(inputs: torch.Tensor, spec: dict) -> torch.Tensor:
     """Patches of an NCHW conv input as (B, T, kh*kw*c_in), feature order
@@ -48,27 +61,100 @@ def _sqrt_hessian_cotangents(f: torch.Tensor, likelihood=Likelihood.CLASSIFICATI
     return p.T.sqrt()[:, :, None] * (eye[:, None, :] - p[None, :, :])
 
 
-def kfac_factors(model, x, y, N: int, lossfunc, last_layer_path=None,
-                 likelihood=Likelihood.CLASSIFICATION):
-    """Per-batch exact-Fisher KFAC `Kron` and the (unscaled) batch loss.
-    With `last_layer_path`, only that layer is tapped (the model's
-    trainable leaves are then that layer's)."""
+def mc_draws(f: torch.Tensor, likelihood, num_samples: int,
+             generator: torch.Generator | None) -> torch.Tensor:
+    """The MC Fisher's draws from the model's predictive at outputs f (B,
+    C): (num_samples, B) classes from the softmax (classification), or
+    (num_samples, B, C) standard normal noise (regression). Every MC draw
+    of the port's curvature goes through here (the JAX package's
+    `jax.random.categorical` / `jax.random.normal` per sample)."""
+    if generator is None:
+        generator = torch.Generator(device=f.device).manual_seed(0)
+    if likelihood == Likelihood.REGRESSION:
+        return torch.randn((num_samples,) + tuple(f.shape), generator=generator,
+                           dtype=f.dtype, device=f.device)
+    p = torch.softmax(f.detach(), dim=-1)
+    return torch.multinomial(p, num_samples, replacement=True, generator=generator).T
+
+
+def mc_cotangents(f: torch.Tensor, likelihood, num_samples: int, generator) -> torch.Tensor:
+    """The MC sweeps' output cotangents (num_samples, B, C): sqrt(2) times
+    the noise (regression, the summed squared error), or p - onehot(class)
+    (classification), as `laplace_jax/curvature/kfac.py:231-247`."""
+    draws = mc_draws(f, likelihood, num_samples, generator)
+    if likelihood == Likelihood.REGRESSION:
+        return math.sqrt(2.0) * draws
+    p = torch.softmax(f, dim=-1)
+    return p[None] - torch.nn.functional.one_hot(draws, f.shape[-1]).to(f.dtype)
+
+
+def label_cotangents(f: torch.Tensor, y: torch.Tensor, likelihood) -> torch.Tensor:
+    """The empirical Fisher's output cotangents (1, B, C): the summed loss's
+    gradient in f at the labels, 2 (f - y) or p - onehot(y)."""
+    if likelihood == Likelihood.REGRESSION:
+        return (2.0 * (f - y))[None]
+    p = torch.softmax(f, dim=-1)
+    return (p - torch.nn.functional.one_hot(y.long(), f.shape[-1]).to(f.dtype))[None]
+
+
+def sweep_cotangents(f, y, likelihood, fisher_type, num_samples=1, generator=None):
+    """(weight, cotangents (K, B, C)) of one Fisher type's sweeps."""
+    f = f.detach()
+    if fisher_type == "exact":
+        return 1.0, _sqrt_hessian_cotangents(f, likelihood)
+    if fisher_type == "mc":
+        return 1.0 / num_samples, mc_cotangents(f, likelihood, num_samples, generator)
+    if fisher_type == "empirical":
+        return 1.0, label_cotangents(f, y, likelihood)
+    raise ValueError(f"Unknown fisher_type {fisher_type}.")
+
+
+def norm_xhat(tap) -> torch.Tensor:
+    """x̂ of a norm tap with its feature axis last: out = scale ∘ x̂ + bias,
+    so x̂ = (out − bias) / scale, zero scales guarded (the JAX package's
+    `_norm_xhat`)."""
+    mod = tap.module
+    out = tap.outputs.movedim(mod.axis, -1) - mod.bias.detach()
+    scale = mod.scale.detach()
+    return out / torch.where(scale == 0, torch.ones_like(scale), scale)
+
+
+def norm_sample_grads(tap, g: torch.Tensor):
+    """Per-sample gradients (K, B, F) of a norm layer's `bias` and `scale`
+    from its output cotangents g (K, B, *out): Σ_pos g and Σ_pos g ∘ x̂."""
+    axis = tap.module.axis
+    g = g.movedim(axis + 1 if axis >= 0 else axis, -1)
+    red = tuple(range(2, g.ndim - 1))  # torch sums every dim over an empty tuple
+    gs = g * norm_xhat(tap)[None]
+    return (g.sum(red), gs.sum(red)) if red else (g, gs)
+
+
+def kfac_factors(model, x, y, N: int, likelihood, lossfunc, fisher_type: str = "exact",
+                 num_samples: int = 1, generator: torch.Generator | None = None,
+                 last_layer_path=None, unsupported: str = "skip", block_max_params: int = 8192):
+    """Per-batch KFAC `Kron` and the (unscaled) batch loss. With
+    `last_layer_path`, only that layer is tapped (the model's trainable
+    leaves are then that layer's). MC draws come from `generator`."""
     paths = None if last_layer_path is None else {tuple(last_layer_path)}
     with torch.enable_grad():
-        f, taps = model.apply_with_taps(x, paths)
-        if not taps:
+        f, taps = model.apply_with_taps(x, paths, norm=unsupported == "block")
+        if not any(t.kind in ("dense", "conv") for t in taps):
             raise ValueError("No Dense/Conv layers intercepted for KFAC.")
-        cot = _sqrt_hessian_cotangents(f.detach(), likelihood)
-        # all C sweeps in one batched backward pass w.r.t. the zero offsets
-        grads = torch.autograd.grad(
-            f, [t.offset for t in taps], grad_outputs=cot, is_grads_batched=True
-        )
+        w, cot = sweep_cotangents(f, y, likelihood, fisher_type, num_samples, generator)
+        # every sweep in one batched backward pass w.r.t. the zero offsets
+        grads = torch.autograd.grad(f, [t.offset for t in taps], grad_outputs=cot,
+                                    is_grads_batched=True)
 
-    B_facs, A_facs = {}, {}
+    B_facs, A_facs, norm_blocks = {}, {}, {}
     for t, g in zip(taps, grads):
-        if t.path in A_facs:  # a layer run twice keeps its first tap
+        if t.path in A_facs or (t.path, "bias") in norm_blocks:  # a layer run twice keeps its first tap
             continue
-        if t.kind == "conv":  # (C, B, out, H, W) -> rows of `out`
+        if t.kind == "norm":
+            gb, gs = norm_sample_grads(t, g)
+            norm_blocks[(t.path, "bias")] = w * torch.einsum("kbc,kbd->cd", gb, gb)
+            norm_blocks[(t.path, "scale")] = w * torch.einsum("kbc,kbd->cd", gs, gs)
+            continue
+        if t.kind == "conv":  # (K, B, out, H, W) -> rows of `out`
             g = g.movedim(2, -1)
             patches = conv_patches(t.inputs.detach(), t.spec)
             a = patches.reshape(-1, patches.shape[-1])
@@ -77,25 +163,77 @@ def kfac_factors(model, x, y, N: int, lossfunc, last_layer_path=None,
             a = t.inputs.detach().reshape(-1, t.inputs.shape[-1])
             A_facs[t.path] = a.T @ a / (N * (a.shape[0] // t.inputs.shape[0]))
         g2 = g.reshape(-1, g.shape[-1])
-        B_facs[t.path] = g2.T @ g2
+        B_facs[t.path] = g2.T @ g2 if w == 1.0 else w * (g2.T @ g2)
 
-    kfacs, skipped = [], []
+    kfacs, skipped, block_wanted = [], [], []
     for spec in model.leaf_specs:
         mod, role = spec.path[:-1], spec.path[-1]
         if mod in A_facs and role == "kernel":
             kfacs.append((A_facs[mod], B_facs[mod]))
-        elif mod in A_facs and role == "bias":
+            continue
+        if mod in A_facs and role == "bias":
             kfacs.append((B_facs[mod],))
+            continue
+        if (mod, role) in norm_blocks:
+            kfacs.append((norm_blocks[(mod, role)],))
+            continue
+        _check_portable(model, spec, unsupported)
+        if unsupported == "block" and spec.size <= block_max_params:
+            block_wanted.append((len(kfacs), spec))
+        elif unsupported == "raise":
+            raise ValueError(
+                f"Trainable parameter {spec.path} does not belong to an intercepted Dense/Conv "
+                "layer; KFAC is undefined for it. Freeze it via the trainable mask or use a "
+                "diag/full Hessian structure.")
         else:
-            # zero curvature: the posterior falls back to the prior here
             skipped.append("/".join(spec.path))
-            kfacs.append(_zero_group(spec, f.dtype, f.device))
+        kfacs.append(_zero_group(spec, f.dtype, f.device))
+
+    if block_wanted:
+        blocks = _exact_leaf_blocks(model, x, w, cot, [s for _, s in block_wanted])
+        for i, spec in block_wanted:
+            kfacs[i] = (blocks[spec.path],)
     if skipped:
         warnings.warn(
-            f"Parameters not supported by KFAC get zero curvature (posterior "
-            f"falls back to the prior): {skipped}."
-        )
+            f"Parameters not supported by KFAC get zero curvature (posterior falls back to "
+            f"the prior): {skipped}. Pass kron_unsupported='block' for exact dense blocks "
+            "(raise block_max_params if these leaves exceed it), or freeze them via the "
+            "trainable mask.")
     return lossfunc(f.detach(), y), Kron(kfacs)
+
+
+def _check_portable(model, spec, unsupported: str) -> None:
+    """Raise `NotImplementedError` for a leaf the JAX package factors and
+    the port's taps do not (a DenseGeneral, an Embed, a conv that is not
+    tapped), unless `unsupported` is "skip", which keeps the zero group."""
+    if unsupported == "skip":
+        return
+    owner = model.module.get_submodule(spec.name.rpartition(".")[0])
+    kind = layer_kind(owner)
+    if kind in ("dense_general", "embed") or (kind == "conv" and kfac_tap(owner) is None):
+        raise NotImplementedError(
+            f"KFAC for the {type(owner).__name__} leaf {spec.path} (kron_unsupported="
+            f"{unsupported!r}): the JAX package factors it, the port's taps cover Dense and "
+            "2-D conv layers only; ROADMAP.md §1 item 5 (tap breadth) is still to port.")
+
+
+def _exact_leaf_blocks(model, x, w, cot, specs) -> dict:
+    """Exact dense blocks w Σ_{b,k} g gᵀ of the leaves `specs`, with g the
+    per-sample gradient of f_b·cot[k, b] in the leaf (flax layout): one
+    backward a sample, batched over the K cotangents (the JAX package's
+    `_exact_leaf_blocks`). Memory: the blocks and one sample's graph."""
+    params = dict(model.module.named_parameters())
+    leaves = [params[s.name] for s in specs]
+    out = {s.path: torch.zeros(s.size, s.size, dtype=cot.dtype, device=cot.device)
+           for s in specs}
+    with torch.enable_grad():
+        for b in range(batch_len(x)):
+            fb = model.apply(batch_slice(x, slice(b, b + 1)))[0]
+            gs = torch.autograd.grad(fb, leaves, grad_outputs=cot[:, b], is_grads_batched=True)
+            for s, g in zip(specs, gs):
+                G = to_flax_layout(g, s.layout, lead=1).reshape(g.shape[0], -1)
+                out[s.path] += w * (G.T @ G)
+    return out
 
 
 def _zero_group(spec, dtype, device):

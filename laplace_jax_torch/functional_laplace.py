@@ -27,7 +27,6 @@ import numpy as np
 import torch
 
 from laplace_jax_torch.baselaplace import BaseLaplace
-from laplace_jax_torch.curvature.backend import CurvatureBackend
 from laplace_jax_torch.enums import (
     FeatureReduction,
     Likelihood,
@@ -59,6 +58,8 @@ class FunctionalLaplace(BaseLaplace):
     Beyond `BaseLaplace`: `n_subset` (the SoD size M), `independent_outputs`
     (C kernels of M×M in place of one of MC×MC), `seed` (the SoD draw) and
     `streaming` (None: stream when the Jacobian cache would pass 1 GiB).
+    The GP takes the backend's Jacobians, loss and factor; `backend`
+    defaults to 'ggn', as in the JAX package.
     """
 
     _key = ("all", "gp")
@@ -67,10 +68,12 @@ class FunctionalLaplace(BaseLaplace):
                  prior_precision=1.0, prior_mean=0.0, temperature: float = 1.0,
                  enable_backprop: bool = False, dict_key_x: str = "input_ids",
                  dict_key_y: str = "labels", independent_outputs: bool = False,
-                 seed: int = 0, streaming: bool | None = None, device=None):
+                 seed: int = 0, streaming: bool | None = None, backend="ggn",
+                 backend_kwargs: dict | None = None, device=None):
         self._check_prior_precision(prior_precision)
         super().__init__(model, likelihood, sigma_noise, prior_precision, prior_mean,
-                         temperature, enable_backprop, dict_key_x, dict_key_y, device=device)
+                         temperature, enable_backprop, dict_key_x, dict_key_y, backend,
+                         backend_kwargs, device=device)
         self.n_subset = n_subset
         self.independent_outputs = independent_outputs
         self.seed = seed
@@ -510,10 +513,11 @@ class FunctionalLLLaplace(FunctionalLaplace):
                  feature_reduction: FeatureReduction | str | None = None,
                  dict_key_x: str = "input_ids", dict_key_y: str = "labels",
                  last_layer_name: str | None = None, independent_outputs: bool = False,
-                 seed: int = 0, device=None):
+                 seed: int = 0, backend="ggn", backend_kwargs: dict | None = None, device=None):
         super().__init__(model, likelihood, n_subset, sigma_noise, prior_precision, prior_mean,
                          temperature, enable_backprop, dict_key_x, dict_key_y,
-                         independent_outputs, seed, device=device)
+                         independent_outputs, seed, backend=backend,
+                         backend_kwargs=backend_kwargs, device=device)
         self._full_model = self.model
         self.feature_reduction = feature_reduction
         self._last_layer_name = last_layer_name
@@ -524,7 +528,8 @@ class FunctionalLLLaplace(FunctionalLaplace):
 
     def _set_last_layer(self, path: tuple) -> None:
         """Restrict the model to the last layer's leaves, take its kind from
-        the probe (`dense` until there is one) and rebuild the backend."""
+        the probe (`dense` until there is one) and give the backend the head
+        (built again at its next use)."""
         trainable = self._full_model.split_last_layer(path)
         self.last_layer_path = path
         self.model = NNModel(self._full_model.module, trainable=trainable)
@@ -532,10 +537,10 @@ class FunctionalLLLaplace(FunctionalLaplace):
         self.n_layers = self.model.n_layers
         self.mean = self.model.mean_vector
         self._head_kind = self._full_model.head_kind(path, self.data)
-        self.backend = CurvatureBackend(self.model, self._backend_likelihood,
-                                        last_layer_path=path,
-                                        feature_reduction=self.feature_reduction,
-                                        last_layer_dense=self._head_kind == "dense")
+        self._backend = None
+        self._backend_kwargs.update(last_layer=True, last_layer_path=path,
+                                    last_layer_dense=self._head_kind == "dense",
+                                    feature_reduction=self.feature_reduction)
 
     def fit(self, train_loader) -> None:
         """Probe the first batch, if there is no probe yet, to find the head

@@ -13,8 +13,13 @@ until then `n_params` is None and the prior waits. The head's kind
 also when `last_layer_name` is given. A Dense head has the closed-form φ⊗I
 Jacobians and the fast diagonal predictive; any other head takes the
 per-sample Jacobians over its leaves and the sampled forward of the whole
-network. KFAC covers a Dense head and a 2-D conv head (the port's taps);
-`KronLLLaplace` on any other head raises `NotImplementedError`.
+network. `backend` and `backend_kwargs` are those of `BaseLaplace`; the
+head's path, kind and `feature_reduction` join the backend's arguments
+(the JAX package's `lllaplace.py:110-115`). KFAC covers a Dense head and a
+2-D conv head (the port's taps). `KronLLLaplace` on a head the JAX package
+factors and the port's taps do not (a DenseGeneral, a 1-D conv) raises
+`NotImplementedError`; on a norm head, which KFAC cannot factor, it raises
+`NoKFACHead`, a `ValueError` as the JAX package's.
 """
 
 from __future__ import annotations
@@ -22,11 +27,18 @@ from __future__ import annotations
 import torch
 
 from laplace_jax_torch.baselaplace import DiagLaplace, FullLaplace, KronLaplace, ParametricLaplace
-from laplace_jax_torch.curvature.backend import CurvatureBackend
 from laplace_jax_torch.enums import FeatureReduction
 from laplace_jax_torch.nnmodel import NNModel, batch_slice, flax_module_name, kfac_tap
+from laplace_jax_torch.utils.flatten import layer_kind
 
-__all__ = ["LLLaplace", "FullLLLaplace", "KronLLLaplace", "DiagLLLaplace"]
+__all__ = ["LLLaplace", "FullLLLaplace", "KronLLLaplace", "DiagLLLaplace", "NoKFACHead"]
+
+
+class NoKFACHead(NotImplementedError, ValueError):
+    """KronLLLaplace on a head KFAC cannot factor (a norm layer): a
+    `ValueError`, the class the JAX package raises there, and a
+    `NotImplementedError`, the class the port raises for heads its taps do
+    not cover, so callers that catch either see it."""
 
 
 class LLLaplace(ParametricLaplace):
@@ -34,21 +46,23 @@ class LLLaplace(ParametricLaplace):
 
     `last_layer_name` is the head's torch module name (`"Dense_0"`,
     `"head.fc"`); None finds it on the first fit batch.
-    Further keyword arguments go to the posterior class (`damping` for
-    Kron).
+    `backend` and `backend_kwargs` are `BaseLaplace`'s. Further keyword
+    arguments go to the posterior class (`damping` for Kron).
     """
 
     def __init__(self, model, likelihood, sigma_noise=1.0, prior_precision=1.0,
                  prior_mean=0.0, temperature: float = 1.0, enable_backprop: bool = False,
                  feature_reduction: FeatureReduction | str | None = None,
                  dict_key_x: str = "input_ids", dict_key_y: str = "labels",
-                 last_layer_name: str | None = None, device=None, **kwargs):
+                 last_layer_name: str | None = None, backend=None,
+                 backend_kwargs: dict | None = None, device=None, **kwargs):
         if feature_reduction is not None and feature_reduction not in [
                 fr.value for fr in FeatureReduction]:
             raise ValueError("`feature_reduction` must take value in the `FeatureReduction "
                              "enum` or one of `{'pick_first', 'pick_last', 'average'}`!")
         super().__init__(model, likelihood, sigma_noise, 1.0, 0.0, temperature,
-                         enable_backprop, dict_key_x, dict_key_y, device=device, **kwargs)
+                         enable_backprop, dict_key_x, dict_key_y, backend=backend,
+                         backend_kwargs=backend_kwargs, device=device, **kwargs)
         self._full_model = self.model
         self.feature_reduction = feature_reduction
         self._last_layer_name = last_layer_name
@@ -63,22 +77,24 @@ class LLLaplace(ParametricLaplace):
 
     def _set_last_layer(self, path: tuple) -> None:
         """Restrict the model to the last layer's leaves, take its kind from
-        the probe (`dense` until there is one), rebuild the backend, and
-        apply the prior given at construction."""
+        the probe (`dense` until there is one), give the backend the head
+        (built again at its next use), and apply the prior given at
+        construction."""
         trainable = self._full_model.split_last_layer(path)
         self.last_layer_path = path
         self.model = NNModel(self._full_model.module, trainable=trainable)
         self.n_params = self.model.n_params
         self.n_layers = self.model.n_layers
         self._head_kind = self._full_model.head_kind(path, self.data)
-        self.backend = CurvatureBackend(self.model, self._backend_likelihood,
-                                        last_layer_path=path,
-                                        feature_reduction=self.feature_reduction,
-                                        last_layer_dense=self._head_kind == "dense")
+        self._backend = None
+        self._backend_kwargs.update(last_layer=True, last_layer_path=path,
+                                    last_layer_dense=self._head_kind == "dense",
+                                    feature_reduction=self.feature_reduction)
         self.prior_precision, self.prior_mean = self._deferred_prior
         self.mean = self.prior_mean
 
-    def fit(self, train_loader, override: bool = True) -> None:
+    def fit(self, train_loader, override: bool = True,
+            generator: torch.Generator | None = None) -> None:
         """Find the last layer on the first batch if needed, resolve the
         head's kind from a probe of that batch, then fit (reference
         `lllaplace.py:162-210`; the JAX package's `lllaplace.py:118-160`)."""
@@ -96,7 +112,7 @@ class LLLaplace(ParametricLaplace):
                 pp, pm = self.prior_precision, self.prior_mean
                 self._set_last_layer(self.last_layer_path)
                 self.prior_precision, self.prior_mean = pp, pm
-        super().fit(train_loader, override=True)
+        super().fit(train_loader, override=True, generator=generator)
 
     def _features(self, x):
         with torch.set_grad_enabled(self.enable_backprop):
@@ -183,12 +199,18 @@ class KronLLLaplace(LLLaplace, KronLaplace):
         """As `LLLaplace._set_last_layer`, for a head the port's KFAC taps
         cover (`nnmodel.kfac_tap`): a Dense or a 2-D conv."""
         head = self._full_model.module.get_submodule(".".join(path))
+        if layer_kind(head) == "norm":
+            raise NoKFACHead(
+                f"KronLLLaplace on a {type(head).__name__} head {path}: no Dense/Conv layer "
+                "is intercepted for KFAC there, and the JAX package refuses this head too, "
+                "under every kron_unsupported policy (ROADMAP.md §1 item 3). Use "
+                "FullLLLaplace or DiagLLLaplace.")
         if kfac_tap(head) is None:
             raise NotImplementedError(
                 f"KronLLLaplace on a {type(head).__name__} head {path}: the port's KFAC taps "
-                "cover Dense and 2-D conv heads; KFAC for DenseGeneral, norm and 1-D conv "
-                "layers is still to port (ROADMAP.md §1 items 3 and 5). Use FullLLLaplace "
-                "or DiagLLLaplace.")
+                "cover Dense and 2-D conv heads; KFAC for DenseGeneral and 1-D conv layers "
+                "is still to port (ROADMAP.md §1 items 3 and 5 list what is ported and what "
+                "is not). Use FullLLLaplace or DiagLLLaplace.")
         super()._set_last_layer(path)
 
     def functional_variance_fast(self, x):

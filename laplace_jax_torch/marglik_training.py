@@ -52,6 +52,8 @@ def marglik_training(
     enable_backprop: bool = False,
     dict_key_x: str = "input_ids",
     dict_key_y: str = "labels",
+    backend="ggn",
+    backend_kwargs: dict | None = None,
     device=None,
 ):
     """Train `model` and tune its prior precision (and, for regression, the
@@ -61,7 +63,8 @@ def marglik_training(
     step, and each epoch's mean training loss (with the prior term).
 
     `optimizer_kwargs` are the network's `torch.optim.Adam` arguments
-    (default `{"lr": 1e-3}`); the curvature is the GGN.
+    (default `{"lr": 1e-3}`); `backend` and `backend_kwargs` choose the
+    curvature, as for `Laplace` (default the GGN).
     """
     device = resolve_device(device)
     model = model.to(device)
@@ -101,7 +104,8 @@ def marglik_training(
                        hessian_structure=hessian_structure,
                        sigma_noise=sigma_noise_init if regression else 1.0,
                        prior_precision=log_prior_prec.exp(), temperature=temperature,
-                       dict_key_x=dict_key_x, dict_key_y=dict_key_y, device=device)
+                       dict_key_x=dict_key_x, dict_key_y=dict_key_y, backend=backend,
+                       backend_kwargs=backend_kwargs, device=device)
 
     for epoch in range(1, n_epochs + 1):
         epoch_loss, epoch_count = 0.0, 0

@@ -1,6 +1,8 @@
-"""Torch twins of the flax.linen layers of `bench.py`'s reward-model
-transformer: `Embed`, `DenseGeneral`, `MultiHeadDotProductAttention` and
-`LayerNorm` (flax 0.12).
+"""Torch twins of flax.linen layers (flax 0.12): those of `bench.py`'s
+reward-model transformer (`Embed`, `DenseGeneral`,
+`MultiHeadDotProductAttention`, `LayerNorm`) and the norms of
+`laplace_jax/models/wideresnet.py` (`BatchNorm` in inference mode,
+`GroupNorm`).
 
 Every parameter is kept in flax layout and under flax's leaf name
 (`embedding`, `kernel` as the torch `weight`, `bias`, `scale`), so the
@@ -20,7 +22,8 @@ from torch import nn
 
 from laplace_jax_torch.models.resnet import _trunc_normal
 
-__all__ = ["Embed", "DenseGeneral", "MultiHeadDotProductAttention", "LayerNorm"]
+__all__ = ["Embed", "DenseGeneral", "MultiHeadDotProductAttention", "LayerNorm", "BatchNorm",
+           "GroupNorm"]
 
 
 def _shape(n) -> tuple:
@@ -94,20 +97,77 @@ class MultiHeadDotProductAttention(nn.Module):
         return self.out(torch.einsum("...hqk,...khd->...qhd", w, v))
 
 
-class LayerNorm(nn.Module):
-    """flax `nn.LayerNorm()` over the last axis: epsilon 1e-6, leaves
-    `scale` and `bias`, and flax's fast variance `max(0, E[x²] − E[x]²)`
-    (not torch's two-pass `layer_norm`), so float32 tracks flax."""
+class _Norm(nn.Module):
+    """A flax norm's affine part on the feature axis `axis` (-1, or 1 for
+    an NCHW tensor): `(x - mean) * (scale * rsqrt(var + epsilon)) + bias`,
+    as flax's `_normalize` computes it. The KFAC and diagonal taps read
+    `scale`, `bias` and `axis` (`nnmodel.apply_with_taps(norm=True)`)."""
 
     tap_kind = "norm"
 
-    def __init__(self, features: int, epsilon: float = 1e-6):
+    def __init__(self, features: int, epsilon: float, axis: int):
         super().__init__()
-        self.epsilon = epsilon
+        self.epsilon, self.axis = epsilon, axis
         self.scale = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
 
+    def _feature(self, t: torch.Tensor, ndim: int) -> torch.Tensor:
+        """A (features,) tensor shaped to broadcast along `axis`."""
+        shape = [1] * ndim
+        shape[self.axis] = -1
+        return t.reshape(shape)
+
+    def _affine(self, x, mean, var):
+        mul = torch.rsqrt(var + self.epsilon) * self._feature(self.scale, x.ndim)
+        return (x - mean) * mul + self._feature(self.bias, x.ndim)
+
+
+class LayerNorm(_Norm):
+    """flax `nn.LayerNorm()` over the feature axis: epsilon 1e-6, leaves
+    `scale` and `bias`, and flax's fast variance `max(0, E[x²] − E[x]²)`
+    (not torch's two-pass `layer_norm`), so float32 tracks flax."""
+
+    def __init__(self, features: int, epsilon: float = 1e-6, axis: int = -1):
+        super().__init__(features, epsilon, axis)
+
     def forward(self, x):
-        mean = x.mean(-1, keepdim=True)
-        var = ((x * x).mean(-1, keepdim=True) - mean * mean).clamp(min=0.0)
-        return (x - mean) * (torch.rsqrt(var + self.epsilon) * self.scale) + self.bias
+        mean = x.mean(self.axis, keepdim=True)
+        var = ((x * x).mean(self.axis, keepdim=True) - mean * mean).clamp(min=0.0)
+        return self._affine(x, mean, var)
+
+
+class BatchNorm(_Norm):
+    """flax `nn.BatchNorm(use_running_average=True)`: the running `mean` and
+    `var` are buffers (flax's `batch_stats`, frozen, never in the flat
+    vector), epsilon 1e-5."""
+
+    def __init__(self, features: int, epsilon: float = 1e-5, axis: int = -1):
+        super().__init__(features, epsilon, axis)
+        self.register_buffer("mean", torch.zeros(features))
+        self.register_buffer("var", torch.ones(features))
+
+    def forward(self, x):
+        return self._affine(x, self._feature(self.mean, x.ndim), self._feature(self.var, x.ndim))
+
+
+class GroupNorm(_Norm):
+    """flax `nn.GroupNorm(num_groups)`: the features split into
+    `num_groups` consecutive groups, each normalized over itself and every
+    axis but the batch one, with flax's fast variance; epsilon 1e-6."""
+
+    def __init__(self, features: int, num_groups: int = 32, epsilon: float = 1e-6,
+                 axis: int = -1):
+        super().__init__(features, epsilon, axis)
+        if features % num_groups:
+            raise ValueError(f"{features} features do not split into {num_groups} groups.")
+        self.num_groups = num_groups
+
+    def forward(self, x):
+        xg = x.movedim(self.axis, -1)
+        xg = xg.reshape(*xg.shape[:-1], self.num_groups, -1)
+        red = tuple(range(1, xg.ndim - 2)) + (xg.ndim - 1,)
+        mean = xg.mean(red, keepdim=True)
+        var = ((xg * xg).mean(red, keepdim=True) - mean * mean).clamp(min=0.0)
+        shape = x.movedim(self.axis, -1).shape
+        mean, var = (t.expand_as(xg).reshape(shape).movedim(-1, self.axis) for t in (mean, var))
+        return self._affine(x, mean, var)

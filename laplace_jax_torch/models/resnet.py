@@ -11,7 +11,8 @@ no padding of its own.
 `(kh, kw, in, out)` -> `(out, in, kh, kw)`, dense kernels `(in, out)` ->
 `(out, in)`; each leaf takes the layout of the torch module that owns it
 (`utils/flatten.weight_layout`), so 1-D convs and the flax-layout twins of
-`models/flax_layers.py` load too.
+`models/flax_layers.py` load too, and flax's `batch_stats` fill the
+`BatchNorm` twins' buffers.
 """
 
 from __future__ import annotations
@@ -129,9 +130,12 @@ def _trunc_normal(t, std, generator):
 def state_dict_from_flax(params: Mapping, module: nn.Module) -> dict:
     """A JAX parameter tree (nested dict of arrays, with or without the
     top-level `'params'`) as a `state_dict` of its twin torch `module`; each
-    kernel takes the layout of the submodule that owns it."""
+    kernel takes the layout of the submodule that owns it. A `batch_stats`
+    collection beside `'params'` fills the `BatchNorm` twins' `mean` and
+    `var` buffers."""
+    trees = [params]
     if "params" in params:
-        params = params["params"]
+        trees = [params["params"]] + ([params["batch_stats"]] if "batch_stats" in params else [])
     out = {}
 
     def walk(tree, prefix):
@@ -146,5 +150,6 @@ def state_dict_from_flax(params: Mapping, module: nn.Module) -> dict:
                 key = "weight"
             out[".".join(prefix + (key,))] = a.contiguous()
 
-    walk(params, ())
+    for tree in trees:
+        walk(tree, ())
     return out

@@ -4,7 +4,11 @@ and Conv taps, a trainable subset of leaves and the last-layer helpers).
 `apply_with_taps` plants a forward hook on every layer the KFAC taps take
 (`kfac_tap`): a Dense (`nn.Linear`), the port's own `Conv`, and every
 `nn.Conv2d` with `groups == 1` and zero padding (grouped and circular convs
-are not tapped yet).
+are not tapped yet); with `norm=True`, also on the norm twins of
+`models/flax_layers.py` (`norm_tap`), whose tap keeps the output, `scale`,
+`bias` and feature axis, as the JAX package's does
+(`laplace_jax/nnmodel.py:250-273`). The exact GGN's KFAC fit takes no norm
+taps; the `block` policy and the tap diagonal do.
 The hook records the layer's input and adds a zero tensor that requires
 grad to the layer's output: the gradient with respect to that zero
 offset is the layer's output gradient, which KFAC needs for its B factor
@@ -46,6 +50,8 @@ class LayerTap:
     inputs: torch.Tensor  # layer input (NCHW for convs)
     offset: torch.Tensor  # zero added to the output, requiring grad
     spec: Optional[dict] = None  # conv: kernel_size, strides, padding, dilation
+    outputs: Optional[torch.Tensor] = None  # norm: the output (detached)
+    module: Optional[nn.Module] = None  # norm: the layer (`scale`, `bias`, `axis`)
 
 
 def batch_len(x) -> int:
@@ -109,6 +115,13 @@ def kfac_tap(mod: nn.Module) -> Optional[tuple]:
     return (kind, spec) if kind == "dense" or spec is not None else None
 
 
+def norm_tap(mod: nn.Module) -> bool:
+    """Whether a layer is a norm the taps take: a twin of a flax norm
+    (`models.flax_layers`, `tap_kind = "norm"`), out = scale ∘ x̂ + bias
+    along its `axis`. torch's own norms are not tapped."""
+    return getattr(type(mod), "tap_kind", None) == "norm"
+
+
 class NNModel:
     """An `nn.Module` with its canonical parameter flattening and taps.
 
@@ -143,18 +156,22 @@ class NNModel:
         return torch.func.functional_call(self.module,
                                           vector_to_parameters(theta, self.leaf_specs), (x,))
 
-    def apply_with_taps(self, x, paths=None, every_kind: bool = False):
+    def apply_with_taps(self, x, paths=None, every_kind: bool = False, norm: bool = False):
         """Forward pass returning `(f, taps)`, taps in execution order; each
         tapped output gets `+ zeros` requiring grad. With `paths` (a set of
         module paths), only those layers are tapped. The KFAC layers
-        (`kfac_tap`) are tapped; with `every_kind`, so is every other layer
-        that has a `layer_kind` (with no conv spec), as discovery needs."""
+        (`kfac_tap`) are tapped; with `norm`, so are the norm twins
+        (`norm_tap`, their output kept); with `every_kind`, so is every
+        other layer that has a `layer_kind` (with no conv spec), as
+        discovery needs."""
         taps: list[LayerTap] = []
 
         def make_hook(path, kind, spec):
             def hook(mod, args, out):
                 off = torch.zeros_like(out).requires_grad_(True)
-                taps.append(LayerTap(path, kind, args[0], off, spec))
+                keep = kind == "norm" and norm
+                taps.append(LayerTap(path, kind, args[0], off, spec,
+                                     out.detach() if keep else None, mod if keep else None))
                 return out + off
 
             return hook
@@ -165,6 +182,8 @@ class NNModel:
             if paths is not None and path not in paths:
                 continue
             tap = kfac_tap(mod)
+            if tap is None and norm and norm_tap(mod):
+                tap = ("norm", None)
             if tap is None and every_kind and layer_kind(mod) is not None:
                 tap = (layer_kind(mod), None)
             if tap is not None:

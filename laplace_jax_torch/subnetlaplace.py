@@ -6,7 +6,9 @@ backend's Jacobians hold only those columns, so `FullSubnetLaplace`'s GGN
 is the `syrk` kernel's product of the subnetwork's (B·C, P_sub) rows, and
 `DiagSubnetLaplace`'s its diagonal. Samples are the MAP vector with the
 subnetwork's entries drawn from the posterior (`assemble_full_samples`).
-The state carries `subnetwork_indices`, checked on load.
+The backend is the GGN or the EF (its gradients taken in the subvector);
+`backend="hessian"` is refused, as in the JAX package. The state carries
+`subnetwork_indices`, checked on load.
 """
 
 from __future__ import annotations
@@ -15,7 +17,6 @@ import numpy as np
 import torch
 
 from laplace_jax_torch.baselaplace import DiagLaplace, FullLaplace, ParametricLaplace
-from laplace_jax_torch.curvature.backend import CurvatureBackend
 
 __all__ = ["SubnetLaplace", "FullSubnetLaplace", "DiagSubnetLaplace"]
 
@@ -31,18 +32,21 @@ class SubnetLaplace(ParametricLaplace):
 
     def __init__(self, model, likelihood, subnetwork_indices, sigma_noise=1.0,
                  prior_precision=1.0, prior_mean=0.0, temperature: float = 1.0,
+                 backend=None, backend_kwargs: dict | None = None,
                  dict_key_x: str = "input_ids", dict_key_y: str = "labels", device=None):
         super().__init__(model, likelihood, sigma_noise=sigma_noise,
                          prior_precision=prior_precision, prior_mean=prior_mean,
                          temperature=temperature, dict_key_x=dict_key_x,
-                         dict_key_y=dict_key_y, device=device)
+                         dict_key_y=dict_key_y, backend=backend,
+                         backend_kwargs=backend_kwargs, device=device)
+        if isinstance(self._backend_arg, str) and self._backend_arg == "hessian":
+            raise ValueError("SubnetLaplace can only be used with GGN and EF.")
         self._check_subnetwork_indices(subnetwork_indices)
         self.subnetwork_indices = torch.as_tensor(np.asarray(subnetwork_indices),
                                                   dtype=torch.long, device=self.device)
         self.n_params_subnet = int(self.subnetwork_indices.shape[0])
         self.prior_precision = self._prior_precision  # validated against the subnetwork
-        self.backend = CurvatureBackend(self.model, self._backend_likelihood,
-                                        subnetwork_indices=self.subnetwork_indices)
+        self._backend_kwargs["subnetwork_indices"] = self.subnetwork_indices
 
     def _check_subnetwork_indices(self, idx) -> None:
         """Index validation (reference `subnetlaplace.py:113-137`)."""

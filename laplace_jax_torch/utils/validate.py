@@ -9,7 +9,6 @@ import inspect
 import torch
 
 from laplace_jax_torch.enums import LinkApprox, PredType
-from laplace_jax_torch.nnmodel import unpack_batch
 
 
 def validate(laplace, val_loader, loss, pred_type: PredType | str = PredType.GLM,
@@ -30,6 +29,9 @@ def validate(laplace, val_loader, loss, pred_type: PredType | str = PredType.GLM
             update_takes_var = _accepts_n_positional(inspect.signature(loss.update), 3)
         except (TypeError, ValueError):
             update_takes_var = None
+    # imported here: nnmodel imports models.resnet, which imports this package
+    from laplace_jax_torch.nnmodel import unpack_batch
+
     output_means, output_vars, targets = [], [], []
 
     for data in val_loader:

@@ -603,3 +603,70 @@ def test_functional_laplace_on_card_matches_cpu(cuda, streaming):
                                rtol=0)
     np.testing.assert_allclose(out[1][1], out[0][1], rtol=1e-9)
     torch.testing.assert_close(out[1][2], out[0][2], atol=1e-9, rtol=0)
+
+
+@pytest.mark.parametrize("model", ["resnet18_w4", "wrn_batch"])
+@pytest.mark.parametrize("backend", ["ggn", "ef"])
+def test_tap_diagonal_on_card_matches_jacobian_path(cuda, model, backend):
+    """The all-weights tap diagonal (GGN and EF) in float64 on the card
+    against the Jacobian (or per-sample gradient) path on the card, and
+    against the tap diagonal on the CPU; the WideResNet's BatchNorm leaves
+    take the norm branch."""
+    from laplace_jax_torch.curvature.backend import CurvatureBackend
+    from laplace_jax_torch.models.resnet import ResNet18
+    from laplace_jax_torch.models.wideresnet import WideResNet16x4
+    from laplace_jax_torch.nnmodel import NNModel
+
+    rng = np.random.default_rng(0)
+    X, y = rng.standard_normal((6, 16, 16, 3)), rng.integers(0, 10, 6)
+    gen = torch.Generator().manual_seed(0)
+    net = (ResNet18(width=4, generator=gen) if model == "resnet18_w4"
+           else WideResNet16x4(10, 1, "batch", generator=gen)).double()
+    out = []
+    for dev in ("cpu", cuda):
+        be = CurvatureBackend(NNModel(net.to(dev)), "classification", backend)
+        Xd, yd = torch.as_tensor(X, device=dev), torch.as_tensor(y, device=dev)
+        _, d = be.diag(Xd, yd)
+        out.append(d.cpu())
+    if backend == "ef":
+        G, _ = be.gradients(Xd, yd)
+        ref = (G * G).sum(0)
+    else:
+        Js, f = be.jacobians(Xd)
+        ref = torch.einsum("bcp,bck,bkp->p", Js, be._functional_hessian(f), Js)
+    scale = float(ref.abs().max())
+    torch.testing.assert_close(out[1], ref.cpu(), atol=1e-10 * scale, rtol=0)
+    torch.testing.assert_close(out[1], out[0], atol=1e-10 * scale, rtol=0)
+
+
+@pytest.mark.parametrize("backend", ["ef", "mc"])
+def test_ef_and_mc_kron_on_card_run_v1_and_v4(cuda, backend):
+    """EF and MC `KronLaplace` fits of a width-32 ResNet-18 in float32:
+    their factor classes 576 and 1152 run the v1 kernel and 2304 the v4
+    kernel; eigenvalues against float64 `eigvalsh` within 1e-4 of the
+    largest, a finite marglik and probit rows summing to 1. The EF fit
+    matches the same fit in float64 on the CPU (1e-3, float32's limit)."""
+    from laplace_jax_torch import KronLaplace
+    from laplace_jax_torch.models.resnet import ResNet18
+    from laplace_jax_torch.utils.data import ArrayLoader
+
+    rng = np.random.default_rng(0)
+    X, y = rng.standard_normal((32, 8, 8, 3)).astype(np.float32), rng.integers(0, 10, 32)
+    net = ResNet18(width=32, generator=torch.Generator().manual_seed(0))
+    la = KronLaplace(net, "classification", backend=backend, device=cuda)
+    v1, v4 = latrd_panel.launches, latrd_panel_v4.launches
+    la.fit(ArrayLoader(X, y, batch_size=16))
+    assert latrd_panel.launches > v1 and latrd_panel_v4.launches > v4
+    for F, ls in zip(la.H_facs.kfacs, la.H.eigenvalues):
+        for H, lam in zip(F, ls):
+            if H.shape[0] >= 512:
+                ref = torch.linalg.eigvalsh(H.double()).clamp(min=0)
+                assert float((lam.double() - ref).abs().max() / ref.abs().max()) <= 1e-4
+    lml = float(la.log_marginal_likelihood())
+    probs = la(X[:4])
+    assert np.isfinite(lml) and bool(torch.isfinite(probs).all())
+    torch.testing.assert_close(probs.sum(-1).cpu(), torch.ones(4), atol=1e-5, rtol=0)
+    if backend == "ef":
+        ref = KronLaplace(net.double().cpu(), "classification", backend="ef", device="cpu")
+        ref.fit(ArrayLoader(X.astype(np.float64), y, batch_size=16))
+        np.testing.assert_allclose(lml, float(ref.log_marginal_likelihood()), rtol=1e-3)
