@@ -149,13 +149,32 @@ Phases, each printing one JSON line; any failed check exits non-zero:
              those leaves and, block by block, both against float64),
              "skip" (a warning, zero norm groups), "raise" (`ValueError`),
              and `DiagLaplace` through the taps against the Jacobian path.
+13. transformer - `bench.py` config 5's reward transformer with all its
+             4,208,130 weights, full size (512 sequences of 128 tokens,
+             batch 64, float32, "reward_modeling"): `KronLaplace` under
+             `kron_unsupported="skip"` and "block" (the DenseGeneral,
+             attention and Embed taps; v1 on its 1024 class of 12 factors
+             and v4 on the Embed's exactly diagonal 4096 factor, launches
+             against `expected_panels`, every panel of the block fit held to
+             its plain version, eigenvalues against float64 `eigvalsh`, the
+             Embed factor's eigenvalues exactly its sorted diagonal, the
+             skip warning naming only LayerNorm leaves), 100 marglik steps
+             and the probit on 64 sequences; `DiagLaplace` through the taps
+             (peak memory, against the Jacobian path on 4 sequences);
+             `LowRankLaplace(low_rank=10)` with the Hessian and the GGN
+             (matrix-free Lanczos: its and one matvec's seconds, peak
+             memory, each Ritz residual, max |UᵀU - I|, probit, marglik,
+             100 tuning steps); float64 on the card against the CPU at 1
+             block, d 64, vocab 256 (Kron factors, tap diagonal, Lanczos
+             eigenpairs from one start vector) within 1e-9.
 The `last_layer` phase also runs the bridge, bridge_norm and MC links on
 its KronLL (rows sum to 1).
 
 Then the kernel summary line (with `main_path_ms`, `route_ms`,
 `stream_bound_ms` and v2's `ms_3x4608` where measured, and
 `launches_by_path`: each kernel's launches on the marglik_training,
-regression, subnet, reward, backends and serialization paths), the
+regression, subnet, reward, backends, transformer and serialization
+paths), the
 `nvidia-smi` line, and last
 `{"ok": true, "device": {...}}`. Without a CUDA device, or outside the
 repository checkout, it exits non-zero and prints no result.
@@ -2179,7 +2198,8 @@ def tap_memory_limit(model, x1, C, batch):
 
     with torch.no_grad():
         _, taps = model.apply_with_taps(x1, norm=True)
-    grads = C * batch * sum(t.offset.numel() for t in taps) * x1.element_size()
+    grads = C * batch * sum(t.offset.numel() for t in taps if t.offset is not None) * \
+        x1.element_size()
     return (4 * grads + 2 * CHUNK_BYTES + (2 << 30)) / 2**30, grads / 2**30
 
 
@@ -2438,6 +2458,257 @@ def backends_phase(seed, device, smi):
     return total
 
 
+# the transformer phase: the reward transformer with all its weights, at
+# bench.py config 5's full size and data (REWARD_SIZES, REWARD_N sequences of
+# REWARD_SEQ tokens, batch REWARD_BATCH), float32
+TRANSFORMER_CLASSES = {1024: 12, 4096: 1}  # its factor classes n >= 512
+TRANSFORMER_LOW_RANK = 10
+# float64 card vs CPU at a reduced size (1 block, d 64, vocab 256, 16
+# sequences of 16 tokens): Kron factors, the tap diagonal, the Lanczos
+# eigenpairs from one start vector, relative to each one's largest entry
+TRANSFORMER_SMALL = dict(vocab=256, d=64, heads=4, mlp=128, blocks=1)
+TRANSFORMER_F64_TOL = 1e-9
+
+
+def device_batches(loader, device, dtype):
+    """A loader's (x, y) batches on the card, as the Lanczos run holds them."""
+    from laplace_jax_torch.utils.device import to_device
+
+    return [tuple(to_device(a, device, dtype) for a in batch) for batch in loader]
+
+
+def lowrank_report(la, batches):
+    """Seconds of one full matvec, each kept pair's Ritz residual
+    ||H u - lambda u|| / lambda_1 from one more pass, and max |U^T U - I|."""
+    import torch
+
+    from laplace_jax_torch.curvature.lanczos import curvature_matvec
+    from laplace_jax_torch.utils.device import full_f32
+
+    matvec = curvature_matvec(la.backend, batches)
+    U, lam = la.H
+    res = {}
+    with torch.no_grad(), full_f32():
+        timed(res, "matvec_s", lambda: matvec(U[:, 0]))
+        res["ritz_residuals"] = [float(torch.linalg.norm(matvec(U[:, i]) - lam[i] * U[:, i])
+                                       / lam[0]) for i in range(U.shape[1])]
+        eye = torch.eye(U.shape[1], dtype=U.dtype, device=U.device)
+        res["orthogonality_err"] = float((U.T @ U - eye).abs().max())
+    res["eigenvalues"] = [float(v) for v in lam]
+    return res
+
+
+def transformer_phase(seed, device, smi):
+    """All-weights Laplace on `bench.py`'s reward transformer at full size
+    (4,208,130 weights, 512 sequences of 128 tokens, batch 64, float32,
+    `"reward_modeling"`): `KronLaplace` under `kron_unsupported="skip"`
+    and `"block"` (v1 on the 1024 class of 12 factors, v4 on the Embed's
+    exactly diagonal 4096 factor; launches against `expected_panels`, every
+    panel of the last fit held to its plain version, eigenvalues against
+    float64 `eigvalsh`, the Embed factor's eigenvalues its sorted
+    diagonal, the skip warning naming only LayerNorm leaves), 100 marglik
+    steps and the probit on 64 sequences; `DiagLaplace` through the taps
+    (peak memory, the taps against the Jacobian path on 4 sequences);
+    `LowRankLaplace(low_rank=10)` with the Hessian and the GGN (Lanczos
+    and matvec seconds, peak memory, Ritz residuals, |U^T U - I|, probit,
+    marglik, 100 tuning steps); float64 on the card against the CPU at a
+    reduced size. Returns the v1 and v4 launches of its Kron fits."""
+    import numpy as np
+    import torch
+
+    from laplace_jax_torch import DiagLaplace, KronLaplace, LowRankLaplace
+    from laplace_jax_torch.curvature import lanczos
+    from laplace_jax_torch.curvature.backend import CurvatureBackend
+    from laplace_jax_torch.nnmodel import NNModel
+    from laplace_jax_torch.ops.latrd import latrd_panel, latrd_panel_plain
+    from laplace_jax_torch.ops.latrd_v4 import latrd_panel_v4, latrd_panel_v4_plain
+    from laplace_jax_torch.utils.data import ArrayLoader
+    from laplace_jax_torch.utils.device import full_f32
+
+    t_start = time.perf_counter()
+    rng = np.random.default_rng(seed + 5)
+    ids = rng.integers(0, REWARD_SIZES["vocab"], size=(REWARD_N, REWARD_SEQ))
+    y = rng.integers(0, 2, size=REWARD_N)
+    loader = ArrayLoader(ids, y, batch_size=REWARD_BATCH)
+    net = reward_transformer(seed, torch.float32, REWARD_SIZES)
+    res = dict(phase="transformer", nvidia_smi=smi, config="bench.py config 5, all weights",
+               model="RewardTransformer (4 blocks, d 256, 8 heads, MLP 1024, vocab 4096)",
+               n_data=REWARD_N, seq=REWARD_SEQ, batch=REWARD_BATCH, dtype="float32",
+               n_weights=sum(p.numel() for p in net.parameters()), kron={})
+    total = {"latrd_panel": 0, "latrd_panel_v4": 0}
+
+    # ---- KronLaplace, skip then block
+    for policy in ("skip", "block"):
+        r = res["kron"][policy] = {}
+        la = KronLaplace(net, "reward_modeling",
+                         backend_kwargs={"kron_unsupported": policy}, device=device)
+        zero_launches()
+        with warnings.catch_warnings(record=True) as caught, PanelTally(keep=True) as tally:
+            warnings.simplefilter("always")
+            timed(r, "fit_s", lambda: la.fit(loader))
+        r["launches"] = kernel_launches(*MAIN_LAUNCHES)
+        for k in total:
+            total[k] += r["launches"][k]
+        msgs = {str(c.message) for c in caught if "zero curvature" in str(c.message)}
+        listed = sorted({p.strip(" '") for m in msgs
+                         for p in m[m.index("[") + 1:m.index("]")].split(",")})
+        specs = la.model.leaf_specs
+        zero = ["/".join(s.path) for s, F in zip(specs, la.H_facs.kfacs)
+                if all(float(H.abs().max()) == 0 for H in F)]
+        gi = [s.path for s in specs].index(("Embed_0", "embedding"))
+        A_embed = la.H_facs.kfacs[gi][0]
+        embed_diag = torch.sort(torch.diagonal(A_embed)).values
+        r.update(accumulate_s=la.fit_seconds["accumulate"],
+                 decompose_s=la.fit_seconds["decompose"], classes=classes(la.H_facs),
+                 expected_launches=expected_panels(la.H_facs), skip_listed=listed,
+                 zero_groups=zero, eig_rel_err_vs_eigh=kernel_eig_err(la),
+                 embed_offdiag_max=float((A_embed - torch.diag(torch.diagonal(A_embed)))
+                                         .abs().max()),
+                 embed_eig_vs_sorted_diag=float((la.H.eigenvalues[gi][0] - embed_diag)
+                                                .abs().max()),
+                 embed_ties=int(torch.unique(torch.diagonal(A_embed), return_counts=True)[1]
+                                .max()),
+                 embed_zero_counts=int((torch.diagonal(A_embed) == 0).sum()),
+                 log_marglik=float(la.log_marginal_likelihood()))
+        if policy == "block":  # the last fit: every panel against its plain version
+            r["v1_panels"] = path_panels_vs_plain(latrd_panel, latrd_panel_plain,
+                                                  tally.inputs["latrd_panel"])
+            r["v4_panels"] = path_panels_vs_plain(latrd_panel_v4, latrd_panel_v4_plain,
+                                                  tally.inputs["latrd_panel_v4"])
+            r["panels_checked"] = {k: len(v) for k, v in tally.inputs.items()}
+            timed(r, "marglik_100_steps_s", lambda: la.optimize_prior_precision(n_steps=100))
+            probs = timed(r, "probit_64_s", lambda: la(ids[:64], fitting=True))
+            r.update(prior_precision=float(la.prior_precision[0]),
+                     tuned_log_marglik=float(la.log_marginal_likelihood()),
+                     probit_finite=bool(torch.isfinite(probs).all()),
+                     probit_row_sum_err=float((probs.sum(-1) - 1).abs().max()))
+        del la, tally
+
+    # ---- DiagLaplace through the taps
+    x4, y4 = (torch.as_tensor(a[:4], device=device) for a in (ids, y))
+    d = res["diag"] = {}
+    la = DiagLaplace(net, "reward_modeling", device=device)
+    torch.cuda.reset_peak_memory_stats()
+    timed(d, "fit_s", lambda: la.fit(loader))
+    d["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    d["mem_limit_gb"], d["tap_grads_gb"] = tap_memory_limit(la.model, x4[:1], 2, REWARD_BATCH)
+    with full_f32():
+        _, d_tap = la.backend.diag(x4, y4)
+        d_jac = jacobian_diag(la.backend, x4, y4)
+    d.update(tap_vs_jacobian_4_rel_err=rel_err(d_tap, d_jac),
+             log_marglik=float(la.log_marginal_likelihood()))
+    del la, d_tap, d_jac
+
+    # ---- LowRankLaplace: the Hessian (the default) and the GGN
+    res["lowrank"] = {}
+    batches = device_batches(loader, device, torch.float32)
+    for backend in ("hessian", "ggn"):
+        r = res["lowrank"][backend] = {}
+        la = LowRankLaplace(net, "reward_modeling", backend=backend,
+                            low_rank=TRANSFORMER_LOW_RANK, device=device)
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        timed(r, "fit_s", lambda: la.fit(loader))
+        r.update(lanczos_s=la.fit_seconds["lanczos"], launches=kernel_launches(),
+                 peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+                 basis_gb=la.n_params * min(4 * TRANSFORMER_LOW_RANK + 16, la.n_params) * 4
+                 / 2**30, kept=len(la.H[1]))
+        r.update(lowrank_report(la, batches))
+        r["log_marglik"] = float(la.log_marginal_likelihood())
+        probs = timed(r, "probit_64_s", lambda: la(ids[:64], fitting=True))
+        timed(r, "marglik_100_steps_s", lambda: la.optimize_prior_precision(n_steps=100))
+        r.update(probit_finite=bool(torch.isfinite(probs).all()),
+                 probit_row_sum_err=float((probs.sum(-1) - 1).abs().max()),
+                 prior_precision=float(la.prior_precision[0]),
+                 tuned_log_marglik=float(la.log_marginal_likelihood()))
+        del la
+    del batches
+
+    # ---- float64 on the card against the CPU, reduced size, one start vector
+    ids64 = rng.integers(0, TRANSFORMER_SMALL["vocab"], size=(16, 16))
+    y64 = rng.integers(0, 2, size=16)
+    loader64 = ArrayLoader(ids64, y64, batch_size=8)
+    net64 = reward_transformer(seed, torch.float64, TRANSFORMER_SMALL)
+    P64 = sum(p.numel() for p in net64.parameters())
+    v0 = torch.randn(P64, dtype=torch.float64, generator=torch.Generator().manual_seed(seed))
+    v0 = v0 / v0.norm()
+    start_vector = lanczos.start_vector
+    lanczos.start_vector = lambda P, dtype, dev, gen: v0.to(dev)
+    f64 = []
+    try:
+        for dev in (device, torch.device("cpu")):
+            kron = KronLaplace(net64, "reward_modeling",
+                               backend_kwargs={"kron_unsupported": "block"}, device=dev)
+            kron.fit(loader64)
+            diag = DiagLaplace(net64, "reward_modeling", device=dev)
+            diag.fit(loader64)
+            out = {"kron": torch.cat([H.reshape(-1).cpu() for F in kron.H_facs.kfacs for H in F]),
+                   "diag": diag.H.cpu()}
+            for curv in ("hessian", "ggn"):
+                U, lam, loss = CurvatureBackend(NNModel(net64), "classification",
+                                                curv).eig_lowrank(loader64, TRANSFORMER_LOW_RANK)
+                out[f"{curv}_eigvals"], out[f"{curv}_loss"] = lam.cpu(), loss.cpu()
+                out[f"{curv}_U"] = U.cpu()
+            f64.append(out)
+    finally:
+        lanczos.start_vector = start_vector
+    card, cpu = f64
+    errs = {}
+    for k in card:
+        a, b = card[k], cpu[k]
+        if k.endswith("_U"):
+            a = a * torch.sign((a * b).sum(0))
+        errs[k] = rel_err(a, b) if a.shape == b.shape else float("inf")
+    res.update(f64_sizes=TRANSFORMER_SMALL, f64_n_weights=P64, f64_rel_err_card_vs_cpu=errs)
+    res["launches"] = total
+    res["phase_s"] = time.perf_counter() - t_start
+    emit(res)
+
+    check(res["n_weights"] == REWARD_WEIGHTS,
+          f"the reward transformer has {res['n_weights']} weights, not {REWARD_WEIGHTS}")
+    for policy, r in res["kron"].items():
+        check(r["classes"] == TRANSFORMER_CLASSES,
+              f"{policy}: factor classes {r['classes']}, not {TRANSFORMER_CLASSES}")
+        check(r["launches"] == r["expected_launches"],
+              f"{policy}: launches {r['launches']}, its classes give {r['expected_launches']}")
+        check(r["eig_rel_err_vs_eigh"] <= EIG_TOL,
+              f"{policy}: eigenvalues off by {r['eig_rel_err_vs_eigh']:.3e} > {EIG_TOL}")
+        # the Embed factor is exactly diagonal; every reflector of its stage 1 is
+        # trivial and stage 2 deflates every pole, so the eigenvalues are its
+        # diagonal entries themselves
+        check(r["embed_offdiag_max"] == 0 and r["embed_eig_vs_sorted_diag"] == 0,
+              f"{policy}: Embed factor off-diagonal {r['embed_offdiag_max']}, eigenvalues off "
+              f"its sorted diagonal by {r['embed_eig_vs_sorted_diag']}")
+        check(math.isfinite(r["log_marglik"]), f"{policy}: marglik is not finite")
+    skip, block = res["kron"]["skip"], res["kron"]["block"]
+    check(skip["skip_listed"] and all(p.startswith("LayerNorm_") for p in skip["skip_listed"])
+          and set(skip["zero_groups"]) == set(skip["skip_listed"]),
+          f"skip warned about {skip['skip_listed']}, zero groups {skip['zero_groups']}")
+    check(not block["skip_listed"] and not block["zero_groups"],
+          f"block: warned about {block['skip_listed']}, zero groups {block['zero_groups']}")
+    check(block["panels_checked"] == {"latrd_panel": block["launches"]["latrd_panel"],
+                                      "latrd_panel_v4": block["launches"]["latrd_panel_v4"]},
+          f"panels held to plain {block['panels_checked']}, launched {block['launches']}")
+    check(math.isfinite(block["tuned_log_marglik"]) and block["probit_finite"]
+          and block["probit_row_sum_err"] <= 1e-5, f"Kron after tuning: {block}")
+    check(d["peak_mem_gb"] <= d["mem_limit_gb"],
+          f"DiagLaplace fit peaked at {d['peak_mem_gb']:.2f} GiB > {d['mem_limit_gb']:.2f}")
+    check(d["tap_vs_jacobian_4_rel_err"] <= BACKEND_TOL,
+          f"tap diagonal off the Jacobian path by {d['tap_vs_jacobian_4_rel_err']:.3e}")
+    check(math.isfinite(d["log_marglik"]), "DiagLaplace marglik is not finite")
+    for backend, r in res["lowrank"].items():
+        check(r["kept"] > 0 and all(math.isfinite(v) and v > 0 for v in r["eigenvalues"]),
+              f"LowRank {backend} eigenvalues {r['eigenvalues']}")
+        check(not any(r["launches"].values()), f"LowRank {backend} launched {r['launches']}")
+        check(math.isfinite(r["log_marglik"]) and math.isfinite(r["tuned_log_marglik"])
+              and r["probit_finite"] and r["probit_row_sum_err"] <= 1e-5,
+              f"LowRank {backend}: {r}")
+    for k, e in errs.items():
+        check(e <= TRANSFORMER_F64_TOL,
+              f"float64 card vs CPU: {k} off by {e:.3e} > {TRANSFORMER_F64_TOL}")
+    return total
+
+
 def serialization_phase(keep, device, smi, main_decompose_s):
     """Each fitted object the earlier phases kept (`main`'s all-weights
     `KronLaplace` on ResNet-18, `last_layer`'s FullLL and DiagLL, `reward`'s
@@ -2607,6 +2878,9 @@ def main() -> None:
     next(r for r in rows if r["name"] == "syrk")["at_128x514"] = syrk_128x514
     # EF and MC Kron on ResNet-18 and the block Kron on WRN-16-4 launch v1 and v4
     by_path["backends"] = backends_phase(args.seed, device, smi)
+    # the reward transformer with all its weights: v1 on its 1024 class, v4
+    # on the Embed's diagonal 4096 factor
+    by_path["transformer"] = transformer_phase(args.seed, device, smi)
     by_path["serialization"] = serialization_phase(keep, device, smi, main["decompose_s"])
 
     keys = ("name", "route", "source", "replaces", "max_abs_err", "ms", "plain_ms",

@@ -10,6 +10,7 @@ from laplace_jax_torch.baselaplace import (
     DiagLaplace,
     FullLaplace,
     KronLaplace,
+    LowRankLaplace,
     ParametricLaplace,
 )
 from laplace_jax_torch.enums import (
@@ -45,6 +46,7 @@ __all__ = [
     "KronLaplace",
     "FullLaplace",
     "DiagLaplace",
+    "LowRankLaplace",
     "LLLaplace",
     "KronLLLaplace",
     "FullLLLaplace",

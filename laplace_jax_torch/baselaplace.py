@@ -1,11 +1,13 @@
 """Weight-space Laplace classes: BaseLaplace, ParametricLaplace and the
-Kron, Full and Diag posteriors (port of `laplace_jax/baselaplace.py`).
+Kron, Full, Diag and LowRank posteriors (port of `laplace_jax/baselaplace.py`).
 
 - `fit` accumulates per-batch curvature in a Python loop (the JAX
   package's `lax.scan`): KFAC factors, merged across online fits with the
   N-rescaled activation factor and then eigendecomposed (Kron); the dense
   curvature (Full; the GGN through the `syrk` kernel); its diagonal (Diag;
-  the GGN's and EF's from the layer taps). The curvature is the `backend`:
+  the GGN's and EF's from the layer taps); or, for LowRank, the whole
+  loader's top eigenpairs by matrix-free Lanczos (`curvature/lanczos.py`).
+  The curvature is the `backend`:
   the GGN, its MC estimate, the empirical Fisher or the exact Hessian
   (`curvature/backend.py`). Batches are `(X, y)` pairs or dicts
   (`dict_key_y` names the targets; the forward gets the whole dict).
@@ -53,7 +55,8 @@ from laplace_jax_torch.utils.matrix import Kron, KronDecomposed, broadcast_group
 from laplace_jax_torch.utils.prior import fix_prior_prec_structure
 from laplace_jax_torch.utils.serialization import load_state_dict, save_state_dict
 
-__all__ = ["BaseLaplace", "ParametricLaplace", "KronLaplace", "FullLaplace", "DiagLaplace"]
+__all__ = ["BaseLaplace", "ParametricLaplace", "KronLaplace", "FullLaplace", "DiagLaplace",
+           "LowRankLaplace"]
 
 # backend name -> (CurvatureBackend curv_type, stochastic)
 BACKENDS = {"ggn": ("ggn", False), "mc": ("ggn", True), "ef": ("ef", False),
@@ -201,6 +204,8 @@ class BaseLaplace:
             return KronDecomposed([tuple(self._float(Q) for Q in Qs) for Qs in v.eigenvectors],
                                   [tuple(self._float(lam) for lam in ls) for ls in v.eigenvalues],
                                   self._float(v.deltas), damping=v.damping)
+        if isinstance(v, (list, tuple)):  # LowRank's (U, eigenvalues)
+            return tuple(self._float(a) for a in v)
         return v
 
     # ---- priors
@@ -891,3 +896,113 @@ class DiagLaplace(ParametricLaplace):
 
     def _samples_from(self, eps):
         return self.mean[None, :] + eps * self.posterior_scale[None, :]
+
+
+class LowRankLaplace(ParametricLaplace):
+    """Low-rank posterior precision `P = U diag(λ) Uᵀ + P₀` from the top
+    `low_rank` eigenpairs of the whole loader's curvature by matrix-free
+    Lanczos (reference `baselaplace.py:1882-2045`, the JAX package's
+    `baselaplace.py:1437-1548`), with Woodbury inference at k x k cost.
+    The default backend is the exact Hessian; `H` is `(U, eigenvalues)`.
+    """
+
+    _key = ("all", "lowrank")
+
+    def __init__(self, model, likelihood, backend="hessian", sigma_noise=1.0,
+                 prior_precision=1.0, prior_mean=0.0, temperature: float = 1.0,
+                 enable_backprop: bool = False, dict_key_x: str = "input_ids",
+                 dict_key_y: str = "labels", backend_kwargs: dict | None = None,
+                 low_rank: int = 10, device=None):
+        self.low_rank = low_rank
+        super().__init__(model, likelihood, sigma_noise, prior_precision, prior_mean,
+                         temperature, enable_backprop, dict_key_x, dict_key_y, backend,
+                         backend_kwargs, device=device)
+
+    @property
+    def V(self) -> torch.Tensor:
+        """U scaled by the prior covariance, P₀⁻¹ U."""
+        (U, _), prior_prec_diag = self.posterior_precision
+        return U / prior_prec_diag[:, None]
+
+    @property
+    def Kinv(self) -> torch.Tensor:
+        """(diag(1/λ) + Uᵀ P₀⁻¹ U)⁻¹."""
+        (U, eigvals), _ = self.posterior_precision
+        return torch.linalg.inv(torch.diag(1.0 / eigvals) + U.T @ self.V)
+
+    @full_f32()
+    def fit(self, train_loader, override: bool = True,
+            generator: torch.Generator | None = None) -> None:
+        """The whole loader's eigendecomposition, not batch-additive
+        (reference `baselaplace.py:1950-1987`); `n_outputs` and the
+        regression target check come from a forward of the first batch's
+        first input. The Lanczos start vector is drawn from `generator`
+        (a fresh one seeded 0 when None). `fit_seconds["lanczos"]` records
+        the run's wall time."""
+        if not override:
+            raise ValueError("LowRank LA does not support updating.")
+        self._check_loader(train_loader)
+        self.mean = parameters_to_vector(self.model.module, self.model.leaf_specs,
+                                         detach=not self.enable_backprop)
+        X, y = self._unpack_batch(next(iter(train_loader)))
+        with torch.no_grad():
+            out = self.model.apply(batch_slice(self._tensor(X), slice(0, 1)))
+        y_ndim = y.ndim if hasattr(y, "ndim") else np.ndim(y)
+        if self.likelihood == Likelihood.REGRESSION and y_ndim != out.ndim:
+            raise ValueError(f"The model's output has {out.ndim} dims but the target has "
+                             f"{y_ndim} dims.")
+        self.n_outputs = out.shape[-1]
+        self._sync()
+        t0 = time.perf_counter()
+        U, eigvals, loss = self.backend.eig_lowrank(train_loader, self.low_rank, generator,
+                                                    unpack=self._unpack_batch)
+        self._sync()
+        self.fit_seconds["lanczos"] = time.perf_counter() - t0
+        self.H = (U, eigvals)
+        self.loss = loss
+        self.n_data = dataset_size(train_loader)
+
+    @property
+    def posterior_precision(self):
+        """((U, λ scaled by 1/σ²/T), the prior precision diagonal)."""
+        self._check_fitted()
+        U, eigvals = self.H
+        return (U, self._h_factor(self.sigma_noise) * eigvals), self.prior_precision_diag
+
+    def functional_variance(self, Js) -> torch.Tensor:
+        prior_var = torch.einsum("ncp,nkp->nck", Js / self.prior_precision_diag, Js)
+        Js_V = torch.einsum("ncp,pl->ncl", Js, self.V)
+        info_gain = torch.einsum("ncl,nkl->nck", Js_V @ self.Kinv, Js_V)
+        return prior_var - info_gain
+
+    def functional_covariance(self, Js) -> torch.Tensor:
+        Jf = Js.reshape(-1, Js.shape[-1])
+        prior_cov = torch.einsum("np,mp->nm", Jf / self.prior_precision_diag, Jf)
+        Js_V = Jf @ self.V
+        return prior_cov - (Js_V @ self.Kinv) @ Js_V.T
+
+    def _samples_from(self, eps):
+        """Low-rank plus diagonal Gaussian samples by the double-Cholesky
+        trick (reference `baselaplace.py:2022-2038`), from `eps` (n, P)."""
+        d = self.prior_precision_diag
+        Vs = self.V * torch.sqrt(d)[:, None]
+        VtV = Vs.T @ Vs
+        Ik = torch.eye(VtV.shape[0], dtype=VtV.dtype, device=VtV.device)
+        A = torch.linalg.cholesky(VtV)
+        B = torch.linalg.cholesky(VtV + Ik)
+        A_inv = torch.linalg.inv(A)
+        C = torch.linalg.inv(A_inv.T @ (B - Ik) @ A_inv)
+        Kern_inv = torch.linalg.inv(torch.linalg.inv(C) + VtV)
+        dinv_sqrt = torch.sqrt(d)[:, None]
+        eps = eps.T
+        gain = (Vs / dinv_sqrt) @ Kern_inv @ (Vs.T @ eps)
+        return self.mean + (eps / dinv_sqrt - gain).T
+
+    def _log_det_posterior_precision(self, prior_precision, sigma_noise):
+        """log det(U diag(λ) Uᵀ + P₀) by the determinant lemma, differentiable
+        in both arguments."""
+        U, eigvals = self.H
+        lam = self._h_factor(sigma_noise) * eigvals
+        d = self._prior_precision_diag(prior_precision)
+        Kinv = torch.linalg.inv(torch.diag(1.0 / lam) + U.T @ (U / d[:, None]))
+        return torch.log(lam).sum() + torch.log(d).sum() - torch.linalg.slogdet(Kinv)[1]

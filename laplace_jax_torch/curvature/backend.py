@@ -19,7 +19,9 @@ the Jacobians, gradients and Hessian hold only those entries of the
 canonical flat vector, in index order.
 
 The full GGN runs through the `syrk` kernel; the all-weights diagonal of the
-GGN and EF through the layer taps (`diag_taps.py`), with no (B, C, P) array.
+GGN and EF through the layer taps (`diag_taps.py`), with no (B, C, P) array;
+the low-rank eigendecomposition of the GGN or the Hessian by matrix-free
+Lanczos (`lanczos.py`).
 MC draws come from the caller's `torch.Generator` (`kfac.mc_draws`).
 """
 
@@ -331,6 +333,16 @@ class CurvatureBackend:
             last_layer_path=self.last_layer_path if self.last_layer else None,
             unsupported=self.kron_unsupported, block_max_params=self.kron_block_max_params)
         return self.factor * loss, kron * self.factor
+
+    # ---- lowrank
+    def eig_lowrank(self, loader, low_rank: int = 10, generator: torch.Generator | None = None,
+                    unpack=None):
+        """The top `low_rank` eigenpairs (eigenvalues above 1e-6) of the
+        whole loader's curvature by matrix-free Lanczos, and the total loss
+        (`lanczos.py`; the JAX package's `backend.py:504-509`)."""
+        from laplace_jax_torch.curvature.lanczos import lanczos_eig_curvature
+
+        return lanczos_eig_curvature(self, loader, low_rank, generator, unpack)
 
 
 def _default_ef_chunk(P: int, itemsize: int = 4) -> int:

@@ -13,12 +13,21 @@ the label gradient for the EF), each layer's diagonal is
   kernel gradients formed for a chunk of samples at a time, so a chunk
   holds at most about `chunk_bytes` of them; ``d_b[o] = Σ_{k,b} (Σ_t
   g[k, b, t, o])²``;
+- a DenseGeneral or Einsum: as a shared Dense, from the tap's activation
+  rows (B, T, K) and its cotangent rows in kernel (and bias) flatten order;
+  a feature-major ("ok") kernel's diagonal transposed;
+- an Embed: the per-sample gradient scatter-adds the output gradients of a
+  sample's positions into the rows of their ids,
+  ``d_E[v, :] = Σ_{k,b} (Σ_{t: id[b,t] = v} g[k, b, t, :])²``;
 - a norm twin: its per-sample `bias` and `scale` gradients Σ_pos g and
-  Σ_pos g ∘ x̂, squared and summed.
+  Σ_pos g ∘ x̂, squared and summed;
+- an `unfactored` Einsum: the exact diagonal of each of its leaves from
+  per-sample backward passes through the leaf (`kfac.exact_leaf_accumulate`).
 
-A leaf outside those layers (a DenseGeneral, an Embed, an untapped conv,
-a bare parameter), or a layer run twice, raises `TapUnsupported`, and the
-backend takes the Jacobian path, which is exact too.
+A leaf outside those layers (an untapped conv, a DenseGeneral with
+`batch_dims`, a bare parameter), or a layer run twice, raises
+`TapUnsupported`, and the backend takes the Jacobian path, which is exact
+too.
 """
 
 from __future__ import annotations
@@ -28,6 +37,8 @@ import torch
 from laplace_jax_torch.curvature.kfac import (
     _sqrt_hessian_cotangents,
     conv_patches,
+    dg_grad_rows,
+    exact_leaf_accumulate,
     label_cotangents,
     norm_sample_grads,
 )
@@ -63,11 +74,23 @@ def diag_curvature_taps(model, x, y, likelihood, lossfunc, curv_type: str = "ggn
             cot = label_cotangents(f.detach(), y, likelihood)
         else:
             raise ValueError(f"Unsupported curv_type {curv_type} for diag taps.")
-        grads = torch.autograd.grad(f, [t.offset for t in taps], grad_outputs=cot,
-                                    is_grads_batched=True)
+        swept = [t for t in taps if t.offset is not None]
+        grads = (torch.autograd.grad(f, [t.offset for t in swept], grad_outputs=cot,
+                                     is_grads_batched=True) if swept else ())
 
     diags = {}
-    for t, g in zip(taps, grads):
+    for t, g in zip(swept, grads):
+        if t.kind == "embed":
+            diags[(t.path, "embedding")] = _embed_diag(t, g)
+            continue
+        if t.kind == "dense_general":
+            dK, dB = _shared_weight_diag(t, dg_grad_rows(g, t.spec), chunk_bytes)
+            if t.spec["g_perm_bias"] != t.spec["g_perm"]:
+                gb = dg_grad_rows(g, t.spec, for_bias=True).sum(2)
+                dB = (gb * gb).sum((0, 1))
+            ok = t.spec["kernel_layout"] == "ok"  # a feature-major kernel flattens O-major
+            diags[(t.path, "kernel")], diags[(t.path, "bias")] = (dK.T if ok else dK), dB
+            continue
         if t.kind == "norm":
             gb, gs = norm_sample_grads(t, g)
             diags[(t.path, "bias")] = (gb * gb).sum((0, 1))
@@ -85,8 +108,30 @@ def diag_curvature_taps(model, x, y, likelihood, lossfunc, curv_type: str = "ggn
         dK, dB = _shared_weight_diag(t, g, chunk_bytes)
         diags[(t.path, "kernel")], diags[(t.path, "bias")] = dK, dB
 
+    unfactored = [s for s in model.leaf_specs
+                  if any(t.kind == "unfactored" and t.path == s.path[:-1] for t in taps)]
+    if unfactored:
+        for path, d in exact_leaf_accumulate(model, x, 1.0, cot, unfactored,
+                                             diagonal=True).items():
+            diags[(path[:-1], path[-1])] = d
     parts = [diags[(s.path[:-1], s.path[-1])].reshape(-1) for s in model.leaf_specs]
     return lossfunc(f.detach(), y), torch.cat(parts)
+
+
+def _embed_diag(t, g: torch.Tensor) -> torch.Tensor:
+    """An Embed's (num_embeddings, features) diagonal from g (K, B, *ids,
+    D): each sample's output gradients summed over its positions with the
+    same id (one sum a distinct (sample, id) pair), squared, and summed
+    into the rows of the ids."""
+    V, B = t.spec["num_embeddings"], g.shape[1]
+    ids = t.inputs.reshape(B, -1)
+    g = g.reshape(g.shape[0], B * ids.shape[1], g.shape[-1])
+    key = (torch.arange(B, device=ids.device)[:, None] * V + ids).reshape(-1)
+    pairs, inverse = torch.unique(key, return_inverse=True)
+    G = torch.zeros(g.shape[0], pairs.numel(), g.shape[-1], dtype=g.dtype,
+                    device=g.device).index_add_(1, inverse, g)
+    return torch.zeros(V, g.shape[-1], dtype=g.dtype, device=g.device).index_add_(
+        0, pairs % V, (G * G).sum(0))
 
 
 def _shared_weight_diag(t, g: torch.Tensor, chunk_bytes: int):
@@ -95,8 +140,10 @@ def _shared_weight_diag(t, g: torch.Tensor, chunk_bytes: int):
     gradients Σ_t a gᵀ of a chunk of samples at a time."""
     K, B, T, O = g.shape
     inputs = t.inputs.detach()
-    I = (t.spec["kernel_size"][0] * t.spec["kernel_size"][1] * inputs.shape[1]
-         if t.kind == "conv" else inputs.shape[-1])
+    if t.kind == "conv":
+        I = t.spec["kernel_size"][0] * t.spec["kernel_size"][1] * inputs.shape[1]
+    else:
+        I = t.patches.shape[-1] if t.kind == "dense_general" else inputs.shape[-1]
     per_sample = (K * I * O + T * I) * g.element_size()
     chunk = max(1, min(B, chunk_bytes // per_sample))
     dK = torch.zeros(I, O, dtype=g.dtype, device=g.device)
@@ -104,6 +151,8 @@ def _shared_weight_diag(t, g: torch.Tensor, chunk_bytes: int):
         sl = slice(b0, min(B, b0 + chunk))
         if t.kind == "conv":
             a = conv_patches(inputs[sl], t.spec)  # (b, T, I)
+        elif t.kind == "dense_general":
+            a = t.patches[sl]
         else:
             a = inputs[sl].reshape(-1, T, I)
         M = torch.einsum("bti,kbto->kbio", a, g[:, sl])
@@ -114,12 +163,15 @@ def _shared_weight_diag(t, g: torch.Tensor, chunk_bytes: int):
 
 def _check_covered(model, taps) -> None:
     """Raise `TapUnsupported` unless each layer is tapped once and every
-    leaf belongs to a tapped Dense, conv or norm layer."""
+    leaf belongs to a tapped Dense, conv, DenseGeneral, Einsum, Embed or
+    norm layer."""
     paths = [t.path for t in taps]
     if len(set(paths)) != len(paths):
         raise TapUnsupported("A tapped layer runs more than once in the forward.")
     kinds = dict(zip(paths, (t.kind for t in taps)))
-    roles = {"dense": ("kernel", "bias"), "conv": ("kernel", "bias"), "norm": ("scale", "bias")}
+    linear = ("kernel", "bias")
+    roles = {"dense": linear, "conv": linear, "dense_general": linear, "unfactored": linear,
+             "embed": ("embedding",), "norm": ("scale", "bias")}
     for s in model.leaf_specs:
         if s.path[-1] not in roles.get(kinds.get(s.path[:-1]), ()):
             raise TapUnsupported(

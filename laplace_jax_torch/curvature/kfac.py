@@ -1,27 +1,35 @@
 """KFAC factors from layer taps (port of `laplace_jax/curvature/kfac.py`:
-Dense and Conv layers, the exact, MC and empirical Fisher, and the
-`unsupported` policies for leaves outside them).
+Dense, Conv, DenseGeneral, Einsum and Embed layers, the exact, MC and
+empirical Fisher, and the `unsupported` policies for leaves outside them).
 
 Normalization contract, as in the JAX package:
 
 - activation factor ``A = (1/(N*T)) sum_{n,t} a a^T`` (T = spatial positions
   of a conv's output; for Dense the positions between batch and feature
-  axes, 1 on a 2-d input: "expand" KFAC);
+  axes, 1 on a 2-d input: "expand" KFAC; for a DenseGeneral or Einsum the
+  tap's activation rows, in the kernel's contracted order; for an Embed the
+  one-hot rows, so ``A = diag(token counts) / (N*T)``);
 - gradient factor ``B = sum_s w_s sum_{n,t} g g^T`` over the cotangent
   sweeps s: the C square-root Hessian columns (exact, w = 1), sampled labels
   (MC, w = 1/num_samples) or the labels themselves (empirical, one sweep);
-- a kernel leaf is the group ``(A, B)`` (input-major ``A kron B`` under the
-  flax flatten), a bias leaf the group ``(B,)``.
+  a DenseGeneral's cotangent rows have its feature axes last, in the
+  kernel's flatten order (`dg_grad_rows`), and a bias whose flatten order
+  differs from the kernel's gets its own B;
+- a kernel (or `embedding`) leaf is the group ``(A, B)`` (input-major ``A
+  kron B`` under the flax flatten; a feature-major Einsum kernel, layout
+  "ok", the group ``(B, A)``), a bias leaf the group ``(B,)``.
 
-A leaf outside the tapped Dense and Conv layers follows `unsupported`:
-``"skip"`` gives it a zero group and warns (the posterior keeps the prior
-there); ``"block"`` gives it the exact dense 1-factor block, from the same
-sweeps through the norm taps for a norm twin's `scale` and `bias`, else
-from per-sample backward passes through the leaf when it has at most
-`block_max_params` entries; ``"raise"`` raises `ValueError`. A leaf of a
-DenseGeneral, Embed or untapped conv, which the JAX package factors and the
-port cannot yet, raises `NotImplementedError` under ``"block"`` and
-``"raise"`` (`ROADMAP.md` §1 item 5).
+A leaf of an `unfactored` Einsum (no two-factor structure) takes the exact
+dense block of its leaves, under every policy, when it has at most
+`block_max_params` entries. Any other leaf outside the tapped layers
+follows `unsupported`: ``"skip"`` gives it a zero group and warns (the
+posterior keeps the prior there); ``"block"`` gives it the exact dense
+1-factor block, from the same sweeps through the norm taps for a norm
+twin's `scale` and `bias`, else from per-sample backward passes through the
+leaf when it has at most `block_max_params` entries; ``"raise"`` raises
+`ValueError`. A leaf of a conv the port does not tap (grouped, circular,
+1-D or 3-D), which the JAX package factors, raises `NotImplementedError`
+under ``"block"`` and ``"raise"`` (`ROADMAP.md` §1 item 5, its conv half).
 """
 
 from __future__ import annotations
@@ -37,7 +45,9 @@ from laplace_jax_torch.ops.im2col import im2col
 from laplace_jax_torch.utils.flatten import layer_kind, to_flax_layout
 from laplace_jax_torch.utils.matrix import Kron
 
-__all__ = ["kfac_factors", "conv_patches", "mc_draws"]
+__all__ = ["kfac_factors", "conv_patches", "mc_draws", "dg_grad_rows"]
+
+TAPPED = ("dense", "conv", "dense_general", "embed", "unfactored")
 
 def conv_patches(inputs: torch.Tensor, spec: dict) -> torch.Tensor:
     """Patches of an NCHW conv input as (B, T, kh*kw*c_in), feature order
@@ -114,7 +124,9 @@ def norm_xhat(tap) -> torch.Tensor:
     so x̂ = (out − bias) / scale, zero scales guarded (the JAX package's
     `_norm_xhat`)."""
     mod = tap.module
-    out = tap.outputs.movedim(mod.axis, -1) - mod.bias.detach()
+    out = tap.outputs.movedim(mod.axis, -1)
+    if mod.bias is not None:
+        out = out - mod.bias.detach()
     scale = mod.scale.detach()
     return out / torch.where(scale == 0, torch.ones_like(scale), scale)
 
@@ -129,6 +141,23 @@ def norm_sample_grads(tap, g: torch.Tensor):
     return (g.sum(red), gs.sum(red)) if red else (g, gs)
 
 
+def dg_grad_rows(g: torch.Tensor, spec: dict, for_bias: bool = False) -> torch.Tensor:
+    """A `dense_general` tap's output cotangents (K, *out) as rows (K, B,
+    T, O): the batch axis first and the feature axes last, in the kernel's
+    (or with `for_bias`, the bias's) flatten order (the JAX package's
+    `_dg_grad_rows`)."""
+    perm = spec["g_perm_bias"] if for_bias else spec["g_perm"]
+    if perm is not None:
+        g = g.permute((0,) + tuple(1 + p for p in perm))
+    O = math.prod(g.shape[g.ndim - spec["n_feat"]:])
+    return g.reshape(g.shape[0], g.shape[1], -1, O)
+
+
+def _gram(rows: torch.Tensor) -> torch.Tensor:
+    r = rows.reshape(-1, rows.shape[-1])
+    return r.T @ r
+
+
 def kfac_factors(model, x, y, N: int, likelihood, lossfunc, fisher_type: str = "exact",
                  num_samples: int = 1, generator: torch.Generator | None = None,
                  last_layer_path=None, unsupported: str = "skip", block_max_params: int = 8192):
@@ -138,15 +167,16 @@ def kfac_factors(model, x, y, N: int, likelihood, lossfunc, fisher_type: str = "
     paths = None if last_layer_path is None else {tuple(last_layer_path)}
     with torch.enable_grad():
         f, taps = model.apply_with_taps(x, paths, norm=unsupported == "block")
-        if not any(t.kind in ("dense", "conv") for t in taps):
+        if not any(t.kind in TAPPED for t in taps):
             raise ValueError("No Dense/Conv layers intercepted for KFAC.")
         w, cot = sweep_cotangents(f, y, likelihood, fisher_type, num_samples, generator)
         # every sweep in one batched backward pass w.r.t. the zero offsets
-        grads = torch.autograd.grad(f, [t.offset for t in taps], grad_outputs=cot,
-                                    is_grads_batched=True)
+        swept = [t for t in taps if t.offset is not None]
+        grads = (torch.autograd.grad(f, [t.offset for t in swept], grad_outputs=cot,
+                                     is_grads_batched=True) if swept else ())
 
-    B_facs, A_facs, norm_blocks = {}, {}, {}
-    for t, g in zip(taps, grads):
+    B_facs, B_bias, A_facs, norm_blocks = {}, {}, {}, {}
+    for t, g in zip(swept, grads):
         if t.path in A_facs or (t.path, "bias") in norm_blocks:  # a layer run twice keeps its first tap
             continue
         if t.kind == "norm":
@@ -154,7 +184,18 @@ def kfac_factors(model, x, y, N: int, likelihood, lossfunc, fisher_type: str = "
             norm_blocks[(t.path, "bias")] = w * torch.einsum("kbc,kbd->cd", gb, gb)
             norm_blocks[(t.path, "scale")] = w * torch.einsum("kbc,kbd->cd", gs, gs)
             continue
-        if t.kind == "conv":  # (K, B, out, H, W) -> rows of `out`
+        if t.kind == "dense_general":
+            A_facs[t.path] = _gram(t.patches) / (N * t.patches.shape[1])
+            B_facs[t.path] = w * _gram(dg_grad_rows(g, t.spec))
+            if t.spec["g_perm"] != t.spec["g_perm_bias"]:
+                B_bias[t.path] = w * _gram(dg_grad_rows(g, t.spec, for_bias=True))
+            continue
+        if t.kind == "embed":  # one-hot rows: a diagonal Gram of the token counts
+            ids = t.inputs.reshape(-1)
+            counts = torch.zeros(t.spec["num_embeddings"], dtype=f.dtype, device=ids.device)
+            counts.index_add_(0, ids, torch.ones(ids.shape, dtype=f.dtype, device=ids.device))
+            A_facs[t.path] = torch.diag(counts) / (N * max(ids.numel() // t.inputs.shape[0], 1))
+        elif t.kind == "conv":  # (K, B, out, H, W) -> rows of `out`
             g = g.movedim(2, -1)
             patches = conv_patches(t.inputs.detach(), t.spec)
             a = patches.reshape(-1, patches.shape[-1])
@@ -162,23 +203,30 @@ def kfac_factors(model, x, y, N: int, likelihood, lossfunc, fisher_type: str = "
         else:  # (B, ..., in): every position between batch and feature is a row
             a = t.inputs.detach().reshape(-1, t.inputs.shape[-1])
             A_facs[t.path] = a.T @ a / (N * (a.shape[0] // t.inputs.shape[0]))
-        g2 = g.reshape(-1, g.shape[-1])
-        B_facs[t.path] = g2.T @ g2 if w == 1.0 else w * (g2.T @ g2)
+        B_facs[t.path] = w * _gram(g)
 
+    first_tap = {}
+    for t in taps:
+        first_tap.setdefault(t.path, t)
     kfacs, skipped, block_wanted = [], [], []
     for spec in model.leaf_specs:
         mod, role = spec.path[:-1], spec.path[-1]
-        if mod in A_facs and role == "kernel":
-            kfacs.append((A_facs[mod], B_facs[mod]))
+        tap = first_tap.get(mod)
+        if mod in A_facs and role in ("kernel", "embedding"):
+            A, B = A_facs[mod], B_facs[mod]
+            ok = tap.kind == "dense_general" and tap.spec["kernel_layout"] == "ok"
+            kfacs.append((B, A) if ok else (A, B))
             continue
         if mod in A_facs and role == "bias":
-            kfacs.append((B_facs[mod],))
+            kfacs.append((B_bias.get(mod, B_facs[mod]),))
             continue
         if (mod, role) in norm_blocks:
             kfacs.append((norm_blocks[(mod, role)],))
             continue
-        _check_portable(model, spec, unsupported)
-        if unsupported == "block" and spec.size <= block_max_params:
+        unfactored = tap is not None and tap.kind == "unfactored"
+        if not unfactored:
+            _check_untapped_conv(model, spec, unsupported)
+        if (unsupported == "block" or unfactored) and spec.size <= block_max_params:
             block_wanted.append((len(kfacs), spec))
         elif unsupported == "raise":
             raise ValueError(
@@ -190,7 +238,7 @@ def kfac_factors(model, x, y, N: int, likelihood, lossfunc, fisher_type: str = "
         kfacs.append(_zero_group(spec, f.dtype, f.device))
 
     if block_wanted:
-        blocks = _exact_leaf_blocks(model, x, w, cot, [s for _, s in block_wanted])
+        blocks = exact_leaf_accumulate(model, x, w, cot, [s for _, s in block_wanted])
         for i, spec in block_wanted:
             kfacs[i] = (blocks[spec.path],)
     if skipped:
@@ -202,37 +250,39 @@ def kfac_factors(model, x, y, N: int, likelihood, lossfunc, fisher_type: str = "
     return lossfunc(f.detach(), y), Kron(kfacs)
 
 
-def _check_portable(model, spec, unsupported: str) -> None:
-    """Raise `NotImplementedError` for a leaf the JAX package factors and
-    the port's taps do not (a DenseGeneral, an Embed, a conv that is not
-    tapped), unless `unsupported` is "skip", which keeps the zero group."""
+def _check_untapped_conv(model, spec, unsupported: str) -> None:
+    """Raise `NotImplementedError` for a leaf of a conv the port's taps do
+    not take (grouped, circular, 1-D, 3-D), which the JAX package factors,
+    unless `unsupported` is "skip", which keeps the zero group."""
     if unsupported == "skip":
         return
     owner = model.module.get_submodule(spec.name.rpartition(".")[0])
-    kind = layer_kind(owner)
-    if kind in ("dense_general", "embed") or (kind == "conv" and kfac_tap(owner) is None):
+    if layer_kind(owner) == "conv" and kfac_tap(owner) is None:
         raise NotImplementedError(
             f"KFAC for the {type(owner).__name__} leaf {spec.path} (kron_unsupported="
-            f"{unsupported!r}): the JAX package factors it, the port's taps cover Dense and "
-            "2-D conv layers only; ROADMAP.md §1 item 5 (tap breadth) is still to port.")
+            f"{unsupported!r}): the JAX package factors it, the port's conv taps cover "
+            "2-D convs with one group and zero padding; ROADMAP.md §1 item 5 (the conv half "
+            "of tap breadth) is still to port.")
 
 
-def _exact_leaf_blocks(model, x, w, cot, specs) -> dict:
-    """Exact dense blocks w Σ_{b,k} g gᵀ of the leaves `specs`, with g the
-    per-sample gradient of f_b·cot[k, b] in the leaf (flax layout): one
-    backward a sample, batched over the K cotangents (the JAX package's
-    `_exact_leaf_blocks`). Memory: the blocks and one sample's graph."""
+def exact_leaf_accumulate(model, x, w, cot, specs, diagonal: bool = False) -> dict:
+    """Exact curvature of the leaves `specs` from per-sample gradients: w
+    Σ_{b,k} g gᵀ (dense blocks) or, with `diagonal`, w Σ_{b,k} g², with g
+    the gradient of f_b·cot[k, b] in the leaf (flax layout): one backward a
+    sample, batched over the K cotangents (the JAX package's
+    `_exact_leaf_blocks` and `_exact_leaf_diags`). Memory: the results and
+    one sample's graph."""
     params = dict(model.module.named_parameters())
     leaves = [params[s.name] for s in specs]
-    out = {s.path: torch.zeros(s.size, s.size, dtype=cot.dtype, device=cot.device)
-           for s in specs}
+    out = {s.path: torch.zeros((s.size,) if diagonal else (s.size, s.size), dtype=cot.dtype,
+                               device=cot.device) for s in specs}
     with torch.enable_grad():
         for b in range(batch_len(x)):
             fb = model.apply(batch_slice(x, slice(b, b + 1)))[0]
             gs = torch.autograd.grad(fb, leaves, grad_outputs=cot[:, b], is_grads_batched=True)
             for s, g in zip(specs, gs):
                 G = to_flax_layout(g, s.layout, lead=1).reshape(g.shape[0], -1)
-                out[s.path] += w * (G.T @ G)
+                out[s.path] += w * ((G * G).sum(0) if diagonal else G.T @ G)
     return out
 
 

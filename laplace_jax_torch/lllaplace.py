@@ -15,11 +15,11 @@ Jacobians and the fast diagonal predictive; any other head takes the
 per-sample Jacobians over its leaves and the sampled forward of the whole
 network. `backend` and `backend_kwargs` are those of `BaseLaplace`; the
 head's path, kind and `feature_reduction` join the backend's arguments
-(the JAX package's `lllaplace.py:110-115`). KFAC covers a Dense head and a
-2-D conv head (the port's taps). `KronLLLaplace` on a head the JAX package
-factors and the port's taps do not (a DenseGeneral, a 1-D conv) raises
-`NotImplementedError`; on a norm head, which KFAC cannot factor, it raises
-`NoKFACHead`, a `ValueError` as the JAX package's.
+(the JAX package's `lllaplace.py:110-115`). KFAC covers a Dense, a 2-D
+conv, a DenseGeneral, an Einsum and an Embed head (the port's taps).
+`KronLLLaplace` on a head the JAX package factors and the port's taps do
+not (a 1-D conv) raises `NotImplementedError`; on a norm head, which KFAC
+cannot factor, it raises `NoKFACHead`, a `ValueError` as the JAX package's.
 """
 
 from __future__ import annotations
@@ -197,7 +197,8 @@ class KronLLLaplace(LLLaplace, KronLaplace):
 
     def _set_last_layer(self, path: tuple) -> None:
         """As `LLLaplace._set_last_layer`, for a head the port's KFAC taps
-        cover (`nnmodel.kfac_tap`): a Dense or a 2-D conv."""
+        cover (`nnmodel.kfac_tap`): a Dense, a 2-D conv, a DenseGeneral, an
+        Einsum or an Embed."""
         head = self._full_model.module.get_submodule(".".join(path))
         if layer_kind(head) == "norm":
             raise NoKFACHead(
@@ -208,9 +209,9 @@ class KronLLLaplace(LLLaplace, KronLaplace):
         if kfac_tap(head) is None:
             raise NotImplementedError(
                 f"KronLLLaplace on a {type(head).__name__} head {path}: the port's KFAC taps "
-                "cover Dense and 2-D conv heads; KFAC for DenseGeneral and 1-D conv layers "
-                "is still to port (ROADMAP.md §1 items 3 and 5 list what is ported and what "
-                "is not). Use FullLLLaplace or DiagLLLaplace.")
+                "cover Dense, 2-D conv, DenseGeneral, Einsum and Embed heads; KFAC for 1-D, "
+                "3-D, grouped and circular convs is still to port (ROADMAP.md §1 item 5, its "
+                "conv half). Use FullLLLaplace or DiagLLLaplace.")
         super()._set_last_layer(path)
 
     def functional_variance_fast(self, x):

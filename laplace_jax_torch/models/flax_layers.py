@@ -1,15 +1,15 @@
 """Torch twins of flax.linen layers (flax 0.12): those of `bench.py`'s
 reward-model transformer (`Embed`, `DenseGeneral`,
-`MultiHeadDotProductAttention`, `LayerNorm`) and the norms of
+`MultiHeadDotProductAttention`, `LayerNorm`), the norms of
 `laplace_jax/models/wideresnet.py` (`BatchNorm` in inference mode,
-`GroupNorm`).
+`GroupNorm`), and `Einsum` and `RMSNorm`.
 
 Every parameter is kept in flax layout and under flax's leaf name
 (`embedding`, `kernel` as the torch `weight`, `bias`, `scale`), so the
 flat vector (`utils/flatten.py`) and `models.resnet.state_dict_from_flax`
 take them as they are. None of them is an `nn.Linear`: the JAX package
-taps a `DenseGeneral` as the kind `dense_general`, not as a Dense, and so
-does the port's discovery (`tap_kind`).
+taps a `DenseGeneral` or an `Einsum` as the kind `dense_general`, not as a
+Dense, and so do the port's taps and discovery (`tap_kind`).
 """
 
 from __future__ import annotations
@@ -22,8 +22,8 @@ from torch import nn
 
 from laplace_jax_torch.models.resnet import _trunc_normal
 
-__all__ = ["Embed", "DenseGeneral", "MultiHeadDotProductAttention", "LayerNorm", "BatchNorm",
-           "GroupNorm"]
+__all__ = ["Embed", "DenseGeneral", "Einsum", "MultiHeadDotProductAttention", "LayerNorm",
+           "RMSNorm", "BatchNorm", "GroupNorm"]
 
 
 def _shape(n) -> tuple:
@@ -49,25 +49,107 @@ class Embed(nn.Module):
 
 
 class DenseGeneral(nn.Module):
-    """flax `nn.DenseGeneral(features, axis)` contracting the last
-    `len(in_shape)` axes: kernel `weight` in flax layout `(*in_shape,
-    *features)`, bias `(*features,)`; lecun-normal kernel on the contracted
-    size, zero bias."""
+    """flax `nn.DenseGeneral(features, axis, batch_dims)`: kernel `weight`
+    in flax layout `(*batch_shape, *in_shape, *features)`, bias
+    `(*batch_shape, *features)`; lecun-normal kernel on the contracted
+    size, zero bias. `axis` are the input axes contracted against
+    `in_shape` (None: the last `len(in_shape)` axes); `batch_dims` are
+    leading input axes shared with the kernel, of sizes `batch_shape`. As
+    flax's `dot_general`, the output holds the batch axes, then the other
+    input axes in order, then `features`."""
 
     tap_kind = "dense_general"
 
-    def __init__(self, in_shape, features, use_bias: bool = True,
-                 generator: torch.Generator | None = None):
+    def __init__(self, in_shape, features, use_bias: bool = True, axis=None,
+                 batch_dims=(), batch_shape=(), generator: torch.Generator | None = None):
         super().__init__()
         self.in_shape, self.features = _shape(in_shape), _shape(features)
-        self.weight = nn.Parameter(torch.empty(self.in_shape + self.features))
-        self.bias = nn.Parameter(torch.zeros(self.features)) if use_bias else None
+        self.axis = None if axis is None else _shape(axis)
+        self.batch_dims, self.batch_shape = tuple(batch_dims), tuple(batch_shape)
+        if len(self.batch_dims) != len(self.batch_shape):
+            raise ValueError("batch_shape must give the size of each of batch_dims.")
+        if self.axis is not None and len(self.axis) != len(self.in_shape):
+            raise ValueError(f"axis {self.axis} does not match in_shape {self.in_shape}.")
+        self.weight = nn.Parameter(torch.empty(self.batch_shape + self.in_shape
+                                               + self.features))
+        self.bias = (nn.Parameter(torch.zeros(self.batch_shape + self.features)) if use_bias
+                     else None)
         with torch.no_grad():
-            _trunc_normal(self.weight, math.sqrt(1.0 / math.prod(self.in_shape)), generator)
+            fan_in = math.prod(self.batch_shape) * math.prod(self.in_shape)
+            _trunc_normal(self.weight, math.sqrt(1.0 / fan_in), generator)
+
+    def contracted_axes(self, ndim: int) -> tuple:
+        """The input axes contracted with the kernel, non-negative."""
+        axis = self.axis or tuple(range(-len(self.in_shape), 0))
+        return tuple(a % ndim for a in axis)
 
     def forward(self, x):
-        y = torch.tensordot(x, self.weight, dims=len(self.in_shape))
-        return y if self.bias is None else y + self.bias
+        axis = self.contracted_axes(x.ndim)
+        letters = iter("abcdefghijklmnopqrstuvwxyz")
+        xs = [next(letters) for _ in range(x.ndim)]
+        feats = "".join(next(letters) for _ in self.features)
+        bdims = tuple(d % x.ndim for d in self.batch_dims)
+        if tuple(x.shape[d] for d in bdims) != self.batch_shape:
+            raise ValueError(f"batch axes {tuple(x.shape[d] for d in bdims)} of the input do not "
+                             f"match the kernel's {self.batch_shape}.")
+        ks = "".join(xs[d] for d in bdims) + "".join(xs[a] for a in axis) + feats
+        free = [c for i, c in enumerate(xs) if i not in axis and i not in bdims]
+        out = "".join(xs[d] for d in bdims) + "".join(free) + feats
+        y = torch.einsum(f"{''.join(xs)},{ks}->{out}", x, self.weight)
+        if self.bias is None:
+            return y
+        # the bias's batch axes on the output's, 1 on its other free axes
+        shape = self.batch_shape + (1,) * len(free) + self.features
+        return y + self.bias.reshape(shape)
+
+
+class Einsum(nn.Module):
+    """flax `nn.Einsum(shape, einsum_str)`: the kernel `weight` of `shape`
+    (flax layout), lecun-normal on its contracted size, and a zero bias over
+    the kernel's axes that reach the output, in the output's order. The
+    equation comes from the constructor, or from the call when the
+    constructor's is None (flax's `merge_param`; the taps then see no
+    equation, as the JAX package's interceptor does not)."""
+
+    tap_kind = "dense_general"
+
+    def __init__(self, shape, einsum_str: str | None = None, use_bias: bool = True,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.shape = _shape(shape)
+        self.einsum_str = None if einsum_str is None else einsum_str.replace(" ", "")
+        self.weight = nn.Parameter(torch.empty(self.shape))
+        self.bias = None
+        if use_bias:
+            if self.einsum_str is None:
+                raise ValueError("A biased Einsum twin needs its einsum_str at construction.")
+            rhs, out = self._operands(self.einsum_str)[1:]
+            self.bias = nn.Parameter(torch.zeros(
+                tuple(self.shape[rhs.index(c)] for c in out if c in rhs)))
+        with torch.no_grad():
+            # flax's lecun_normal on an n-d kernel: fan in = size / last axis
+            _trunc_normal(self.weight, math.sqrt(self.shape[-1] / math.prod(self.shape)),
+                          generator)
+
+    @staticmethod
+    def _operands(einsum_str: str) -> tuple:
+        if "->" not in einsum_str or einsum_str.count(",") != 1:
+            raise ValueError(f"einsum_str {einsum_str!r} must be explicit with two operands.")
+        lhs_rhs, out = einsum_str.split("->")
+        lhs, rhs = lhs_rhs.split(",")
+        return lhs, rhs, out
+
+    def forward(self, x, einsum_str: str | None = None):
+        if (self.einsum_str is None) == (einsum_str is None):
+            raise ValueError("Give einsum_str to exactly one of the constructor and the call.")
+        es = self.einsum_str or einsum_str.replace(" ", "")
+        y = torch.einsum(es, x, self.weight)
+        if self.bias is None:
+            return y
+        rhs, out = self._operands(es)[1:]
+        out = out.replace("...", "." * (y.ndim - len(out.replace("...", ""))))
+        shape = [self.shape[rhs.index(c)] if c in rhs else 1 for c in out]
+        return y + self.bias.reshape(shape)
 
 
 class MultiHeadDotProductAttention(nn.Module):
@@ -105,11 +187,11 @@ class _Norm(nn.Module):
 
     tap_kind = "norm"
 
-    def __init__(self, features: int, epsilon: float, axis: int):
+    def __init__(self, features: int, epsilon: float, axis: int, use_bias: bool = True):
         super().__init__()
         self.epsilon, self.axis = epsilon, axis
         self.scale = nn.Parameter(torch.ones(features))
-        self.bias = nn.Parameter(torch.zeros(features))
+        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
     def _feature(self, t: torch.Tensor, ndim: int) -> torch.Tensor:
         """A (features,) tensor shaped to broadcast along `axis`."""
@@ -119,7 +201,8 @@ class _Norm(nn.Module):
 
     def _affine(self, x, mean, var):
         mul = torch.rsqrt(var + self.epsilon) * self._feature(self.scale, x.ndim)
-        return (x - mean) * mul + self._feature(self.bias, x.ndim)
+        y = (x - mean) * mul
+        return y if self.bias is None else y + self._feature(self.bias, x.ndim)
 
 
 class LayerNorm(_Norm):
@@ -134,6 +217,18 @@ class LayerNorm(_Norm):
         mean = x.mean(self.axis, keepdim=True)
         var = ((x * x).mean(self.axis, keepdim=True) - mean * mean).clamp(min=0.0)
         return self._affine(x, mean, var)
+
+
+class RMSNorm(_Norm):
+    """flax `nn.RMSNorm()` over the feature axis: `x * rsqrt(E[x²] +
+    epsilon) * scale`, epsilon 1e-6, the leaf `scale` and no bias."""
+
+    def __init__(self, features: int, epsilon: float = 1e-6, axis: int = -1):
+        super().__init__(features, epsilon, axis, use_bias=False)
+
+    def forward(self, x):
+        var = (x * x).mean(self.axis, keepdim=True)
+        return self._affine(x, 0.0, var)
 
 
 class BatchNorm(_Norm):

@@ -1,14 +1,23 @@
-"""Model adapter with layer taps (port of `laplace_jax/nnmodel.py`, Dense
-and Conv taps, a trainable subset of leaves and the last-layer helpers).
+"""Model adapter with layer taps (port of `laplace_jax/nnmodel.py`: the
+Dense, Conv, DenseGeneral, Einsum, Embed and norm taps, a trainable subset
+of leaves and the last-layer helpers).
 
 `apply_with_taps` plants a forward hook on every layer the KFAC taps take
-(`kfac_tap`): a Dense (`nn.Linear`), the port's own `Conv`, and every
+(`kfac_tap`): a Dense (`nn.Linear`), the port's own `Conv`, every
 `nn.Conv2d` with `groups == 1` and zero padding (grouped and circular convs
-are not tapped yet); with `norm=True`, also on the norm twins of
-`models/flax_layers.py` (`norm_tap`), whose tap keeps the output, `scale`,
-`bias` and feature axis, as the JAX package's does
-(`laplace_jax/nnmodel.py:250-273`). The exact GGN's KFAC fit takes no norm
-taps; the `block` policy and the tap diagonal do.
+are not tapped yet), an `Embed` (the tap keeps the ids and
+`num_embeddings`), and a `DenseGeneral` or `Einsum` twin, whose tap
+(`general_linear_tap`, the JAX package's `_general_linear_tap`,
+`laplace_jax/nnmodel.py:475-620`) is one of three: `dense_general`, with
+the activation rows `(B, T, K)` in the kernel's contracted order and the
+cotangent's permutation; `unfactored`, for a batch-separable equation with
+no two-factor structure (exact per-leaf curvature, no output offset); or
+none, for `batch_dims`, a batch-contracting or a call-time equation (the
+leaves then follow the `unsupported` policy). With `norm=True`, the norm
+twins of `models/flax_layers.py` are tapped too (`norm_tap`), their tap
+keeping the output, `scale`, `bias` and feature axis, as the JAX package's
+does (`laplace_jax/nnmodel.py:250-273`). The exact GGN's KFAC fit takes no
+norm taps; the `block` policy and the tap diagonal do.
 The hook records the layer's input and adds a zero tensor that requires
 grad to the layer's output: the gradient with respect to that zero
 offset is the layer's output gradient, which KFAC needs for its B factor
@@ -28,6 +37,9 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Mapping, Optional
 
+import math
+import string
+
 import torch
 from torch import nn
 
@@ -46,12 +58,17 @@ class LayerTap:
     """One executed layer."""
 
     path: tuple  # module path, e.g. ("ResidualBlock_0", "Conv_0")
-    kind: str  # its `layer_kind`: "dense" | "conv" (KFAC), or any kind (a probe)
-    inputs: torch.Tensor  # layer input (NCHW for convs)
-    offset: torch.Tensor  # zero added to the output, requiring grad
-    spec: Optional[dict] = None  # conv: kernel_size, strides, padding, dilation
+    # "dense" | "conv" | "dense_general" | "unfactored" | "embed" | "norm", or
+    # any `layer_kind` (a probe)
+    kind: str
+    inputs: torch.Tensor  # layer input (NCHW for convs, the ids for an embedding)
+    offset: Optional[torch.Tensor]  # zero added to the output, requiring grad (None: unfactored)
+    # conv: kernel_size, strides, padding, dilation; embed: num_embeddings;
+    # dense_general: n_feat, g_perm, g_perm_bias, kernel_layout
+    spec: Optional[dict] = None
     outputs: Optional[torch.Tensor] = None  # norm: the output (detached)
     module: Optional[nn.Module] = None  # norm: the layer (`scale`, `bias`, `axis`)
+    patches: Optional[torch.Tensor] = None  # dense_general: activation rows (B, T, K)
 
 
 def batch_len(x) -> int:
@@ -108,11 +125,95 @@ def conv_spec(mod: nn.Module) -> Optional[dict]:
 
 
 def kfac_tap(mod: nn.Module) -> Optional[tuple]:
-    """`(kind, conv spec)` of a layer the KFAC taps take (a Dense, or a conv
-    with a `conv_spec`), else None."""
+    """`(kind, spec)` of a layer the KFAC taps take (a Dense, a conv with a
+    `conv_spec`, the Embed, DenseGeneral or Einsum twin), else None. A
+    `dense_general` layer's tap is settled in the forward, from its input
+    (`general_linear_tap`)."""
     kind = layer_kind(mod)
-    spec = conv_spec(mod) if kind == "conv" else None
-    return (kind, spec) if kind == "dense" or spec is not None else None
+    if kind == "conv":
+        spec = conv_spec(mod)
+        return None if spec is None else (kind, spec)
+    if kind == "embed" and hasattr(mod, "embedding"):  # the twin; torch's nn.Embedding is not tapped
+        return kind, {"num_embeddings": int(mod.embedding.shape[0])}
+    return (kind, None) if kind in ("dense", "dense_general") else None
+
+
+def general_linear_tap(mod: nn.Module, a: torch.Tensor) -> Optional[tuple]:
+    """The tap of a DenseGeneral or Einsum twin on the input `a`: `(
+    "dense_general", spec, rows)` with the activation rows `(B, T, K)`, K
+    the contracted axes flattened in the kernel's order and T the positions
+    sharing the weight, and `spec` the cotangent's metadata (`n_feat`
+    trailing feature axes after `g_perm` / `g_perm_bias`, the permutations
+    of the output's axes into kernel / bias flatten order, None for the
+    identity; `kernel_layout` "ko", contracted-major, or "ok",
+    feature-major); `("unfactored", None, None)` for a batch-separable
+    equation with no two-factor structure; None for `batch_dims`, a kernel
+    axis tied to the batch, a batch-contracting or a call-time equation
+    (the JAX package's `_general_linear_tap`, `laplace_jax/nnmodel.py:475-620`)."""
+    if hasattr(mod, "contracted_axes"):  # DenseGeneral
+        if mod.batch_dims:
+            return None
+        axis = mod.contracted_axes(a.ndim)
+        if 0 in axis or len(set(axis)) != len(axis):
+            return None
+        rest = tuple(i for i in range(a.ndim) if i not in axis)
+        K = math.prod(a.shape[ax] for ax in axis)
+        rows = a.detach().permute(rest + axis).reshape(a.shape[0], -1, K)
+        return "dense_general", dict(n_feat=len(mod.features), g_perm=None, g_perm_bias=None,
+                                     kernel_layout="ko"), rows
+    es = mod.einsum_str
+    if es is None or "->" not in es or es.count(",") != 1:
+        return None
+    lhs_s, out_s = es.split("->")
+    lhs_s, rhs_s = lhs_s.split(",")
+    if "." in rhs_s:
+        return None
+    if "..." in lhs_s:
+        n_batch = a.ndim - len(lhs_s.replace("...", ""))
+        if n_batch < 0 or "..." not in out_s:
+            return None
+        pool = [c for c in string.ascii_letters if c not in lhs_s + rhs_s + out_s]
+        if len(pool) < n_batch:
+            return None
+        batch = "".join(pool[:n_batch])
+        lhs_s, out_s = lhs_s.replace("...", batch), out_s.replace("...", batch)
+    if "." in lhs_s + out_s:
+        return None
+    lhs, rhs, out = list(lhs_s), list(rhs_s), list(out_s)
+
+    def unfactored():
+        # batch-separable: the batch label stays out of the kernel and reaches the output
+        if lhs and lhs[0] not in rhs and lhs[0] in out:
+            return "unfactored", None, None
+        return None
+
+    if len(set(lhs)) != len(lhs) or len(set(rhs)) != len(rhs) or len(set(out)) != len(out):
+        return unfactored()  # repeated (diagonal) labels
+    contracted = [c for c in rhs if c in lhs and c not in out]
+    feat = [c for c in rhs if c not in lhs]
+    if not contracted or not feat:
+        return unfactored()
+    if rhs == contracted + feat:
+        layout = "ko"
+    elif rhs == feat + contracted:
+        layout = "ok"
+    else:
+        return unfactored()  # interleaved labels, or a kernel batch axis
+    if any(c not in out for c in feat):
+        return unfactored()  # a kernel feature axis summed out
+    keep = [c for c in lhs if c not in contracted]
+    if set(c for c in out if c not in feat) != set(keep) or not keep or lhs[0] != keep[0]:
+        return unfactored()
+    K = math.prod(a.shape[lhs.index(c)] for c in contracted)
+    rows = a.detach().permute(tuple(lhs.index(c) for c in keep + contracted))
+    rows = rows.reshape(a.shape[0], -1, K)
+    identity = tuple(range(len(out)))
+    g_perm = tuple(out.index(c) for c in keep + feat)
+    g_perm_bias = tuple(out.index(c) for c in keep + [c for c in out if c in feat])
+    return "dense_general", dict(n_feat=len(feat),
+                                 g_perm=None if g_perm == identity else g_perm,
+                                 g_perm_bias=None if g_perm_bias == identity else g_perm_bias,
+                                 kernel_layout=layout), rows
 
 
 def norm_tap(mod: nn.Module) -> bool:
@@ -158,20 +259,30 @@ class NNModel:
 
     def apply_with_taps(self, x, paths=None, every_kind: bool = False, norm: bool = False):
         """Forward pass returning `(f, taps)`, taps in execution order; each
-        tapped output gets `+ zeros` requiring grad. With `paths` (a set of
-        module paths), only those layers are tapped. The KFAC layers
-        (`kfac_tap`) are tapped; with `norm`, so are the norm twins
-        (`norm_tap`, their output kept); with `every_kind`, so is every
-        other layer that has a `layer_kind` (with no conv spec), as
+        tapped output but an `unfactored` one gets `+ zeros` requiring grad.
+        With `paths` (a set of module paths), only those layers are tapped.
+        The KFAC layers (`kfac_tap`) are tapped; with `norm`, so are the
+        norm twins (`norm_tap`, their output kept); with `every_kind`, so is
+        every other layer that has a `layer_kind` (with no conv spec), as
         discovery needs."""
         taps: list[LayerTap] = []
 
         def make_hook(path, kind, spec):
             def hook(mod, args, out):
+                tap_kind, tap_spec, rows = kind, spec, None
+                if kind == "dense_general":
+                    tap = general_linear_tap(mod, args[0])
+                    if tap is None:
+                        return None
+                    tap_kind, tap_spec, rows = tap
+                if tap_kind == "unfactored":  # exact per-leaf curvature: no output gradient
+                    taps.append(LayerTap(path, tap_kind, args[0], None))
+                    return None
                 off = torch.zeros_like(out).requires_grad_(True)
                 keep = kind == "norm" and norm
-                taps.append(LayerTap(path, kind, args[0], off, spec,
-                                     out.detach() if keep else None, mod if keep else None))
+                taps.append(LayerTap(path, tap_kind, args[0], off, tap_spec,
+                                     out.detach() if keep else None, mod if keep else None,
+                                     rows))
                 return out + off
 
             return hook

@@ -235,8 +235,14 @@ def _merge_level(D, U, rho, z):
     degen = (a[:, None, :] <= tiny) | (a_next[:, None, :] <= tiny)
     eye_col = (t_row == j_col).to(dtype)
     G_defl = torch.where(degen, eye_col, G_defl)
+    # a run whose survivor deflates (z negligible on the whole run) is not
+    # rotated: each pole keeps its own vector, as a small-z deflation does.
+    # (The JAX package rotates its members all the same and gives the
+    # survivor e_j, which repeats a member's column when z's weight is not
+    # on the run's last pole.)
+    rotated = ~surv & torch.gather(active, 1, rl)
     G = torch.where(active[:, None, :], G_act,
-                    torch.where(~surv[:, None, :], G_defl, eye_col))
+                    torch.where(rotated[:, None, :], G_defl, eye_col))
     U_new = Up @ G
 
     order = torch.argsort(lam, dim=1, stable=True)

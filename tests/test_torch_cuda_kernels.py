@@ -670,3 +670,92 @@ def test_ef_and_mc_kron_on_card_run_v1_and_v4(cuda, backend):
         ref = KronLaplace(net.double().cpu(), "classification", backend="ef", device="cpu")
         ref.fit(ArrayLoader(X.astype(np.float64), y, batch_size=16))
         np.testing.assert_allclose(lml, float(ref.log_marginal_likelihood()), rtol=1e-3)
+
+
+def _count_window(n, n_used, tokens, dtype, device):
+    """diag(token counts) / tokens (1, n, n): `tokens` ids drawn uniformly
+    from the first `n_used` of n, so the counts tie in the dozens and the
+    last n - n_used are zero (the Embed's KFAC activation factor)."""
+    ids = np.random.default_rng(n).integers(0, n_used, size=tokens)
+    counts = np.bincount(ids, minlength=n) / tokens
+    return torch.diag(torch.as_tensor(counts, dtype=dtype, device=device))[None]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["float64", "float32"])
+@pytest.mark.parametrize("kernel,plain,driver,stage1,n", [
+    pytest.param(latrd_panel, latrd_panel_plain, tridiagonalize_latrd, "latrd", 1024, id="v1"),
+    pytest.param(latrd_panel_v4, latrd_panel_v4_plain, tridiagonalize_latrd_v4, "latrd_v4",
+                 4096, id="v4")])
+def test_panels_on_an_exactly_diagonal_window(cuda, kernel, plain, driver, stage1, n, dtype):
+    """An exactly diagonal window with tied and zero entries: the first
+    panel equals its plain version exactly (every reflector is trivial, so
+    nothing is summed), the whole stage 1 has tau = 0 and e = 0 and keeps
+    the diagonal, and the two-stage solver's eigenvalues are the sorted
+    diagonal exactly and eigvalsh's within 1e-12, with Q Λ Qᵀ the matrix
+    and Qᵀ Q the identity (1e-12 in float64; 1e-6 in float32, where Q is
+    re-orthonormalized)."""
+    from laplace_jax_torch.ops.tridiag_eig import eigh_stack_ts
+
+    A = _count_window(n, n - n // 16, 16 * n, dtype, cuda)
+    launches = kernel.launches
+    got = kernel(A, 0, 0, n, 64)
+    torch.cuda.synchronize()
+    assert kernel.launches == launches + 1
+    for g, r in zip(got, plain(A, 0, 0, n, 64)):
+        assert torch.isfinite(g).all()
+        torch.testing.assert_close(g, r, atol=0, rtol=0)
+    d, e, V, taus = driver(A)
+    assert float(taus.abs().max()) == 0 and float(e.abs().max()) == 0
+    torch.testing.assert_close(d, torch.diagonal(A, dim1=1, dim2=2), atol=0, rtol=0)
+    lam, Q = eigh_stack_ts(A, stage1=stage1, device=cuda)
+    torch.testing.assert_close(lam, torch.sort(torch.diagonal(A, dim1=1, dim2=2)).values,
+                               atol=0, rtol=0)
+    Q64, A64 = Q.double(), A.double()
+    scale = float(A64.abs().max())
+    torch.testing.assert_close(lam.double(), torch.linalg.eigvalsh(A64), atol=1e-12 * scale,
+                               rtol=0)
+    tol = 1e-12 if dtype == torch.float64 else 1e-6
+    assert float(((Q64 * lam.double()[:, None, :]) @ Q64.mT - A64).abs().max()) <= tol * scale
+    eye = torch.eye(n, dtype=torch.float64, device=cuda)
+    assert float((Q64.mT @ Q64 - eye).abs().max()) <= tol
+
+
+def test_reward_transformer_on_card_matches_cpu(cuda, monkeypatch):
+    """The narrow reward transformer (1 block, d 16, vocab 64) in float64,
+    all weights: the Kron factors under "block", the tap diagonal, and
+    `eig_lowrank` (Hessian and GGN) from one start vector, the card
+    against the CPU within 1e-10 relative (eigenvectors sign-aligned)."""
+    from laplace_jax_torch import DiagLaplace, KronLaplace
+    from laplace_jax_torch.curvature import lanczos
+    from laplace_jax_torch.curvature.backend import CurvatureBackend
+    from laplace_jax_torch.nnmodel import NNModel
+    from laplace_jax_torch.utils.data import ArrayLoader
+
+    from .torch_reward_twin import RewardTransformer
+
+    rng = np.random.default_rng(0)
+    ids, y = rng.integers(0, 64, size=(16, 8)), rng.integers(0, 2, 16)
+    loader = ArrayLoader(ids, y, batch_size=8)
+    net = RewardTransformer(64, 16, 2, 32, 1, generator=torch.Generator().manual_seed(0)).double()
+    v0 = torch.randn(sum(p.numel() for p in net.parameters()), dtype=torch.float64,
+                     generator=torch.Generator().manual_seed(1))
+    monkeypatch.setattr(lanczos, "start_vector",
+                        lambda P, dtype, device, gen: (v0 / v0.norm()).to(device))
+    out = []
+    for dev in ("cpu", cuda):
+        kron = KronLaplace(net, "reward_modeling", backend_kwargs={"kron_unsupported": "block"},
+                           device=dev)
+        kron.fit(loader)
+        diag = DiagLaplace(net, "reward_modeling", device=dev)
+        diag.fit(loader)
+        row = [(H.cpu(), False) for F in kron.H_facs.kfacs for H in F] + [(diag.H.cpu(), False)]
+        for curv in ("hessian", "ggn"):
+            U, lam, loss = CurvatureBackend(NNModel(net), "classification", curv).eig_lowrank(
+                loader, low_rank=5)
+            row += [(U.cpu(), True), (lam.cpu(), False), (loss.cpu(), False)]
+        out.append(row)
+        net = net.cpu()
+    for (a, ritz), (b, _) in zip(*out):
+        if ritz:  # eigenvectors: up to sign
+            b = b * torch.sign((a * b).sum(0))
+        torch.testing.assert_close(b, a, atol=1e-10 * float(a.abs().max()), rtol=0)

@@ -2,9 +2,13 @@
 
 An AST check over every module of `laplace_jax_torch/` and over
 `chip_smoke.py`: no `import jax`, `flax`, `optax` or `laplace_jax[.*]`.
+And in a fresh interpreter, importing the package, the Lanczos module and
+the flax-layer twins leaves no `jax` and no `laplace_jax` in `sys.modules`.
 """
 
 import ast
+import subprocess
+import sys
 from pathlib import Path
 
 import pytest
@@ -33,4 +37,15 @@ def test_port_imports_no_jax(path):
 def test_port_package_is_covered():
     names = {p.name for p in FILES}
     assert {"latrd.py", "latrd_v4.py", "latrd_v3.py", "latrd_v2.py", "eigh_dc.py", "syrk.py",
-            "baselaplace.py", "lllaplace.py", "chip_smoke.py"} <= names
+            "baselaplace.py", "lllaplace.py", "lanczos.py", "flax_layers.py",
+            "chip_smoke.py"} <= names
+
+
+@pytest.mark.parametrize("module", ["laplace_jax_torch", "laplace_jax_torch.curvature.lanczos",
+                                    "laplace_jax_torch.models.flax_layers"])
+def test_import_loads_no_jax(module):
+    code = (f"import sys, {module}; "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}); print(bad); assert not bad")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True)
+    assert out.returncode == 0, out.stdout + out.stderr

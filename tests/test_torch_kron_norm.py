@@ -4,7 +4,8 @@ package in float64 on the CPU: the norm twins (`BatchNorm` with frozen
 running statistics, `GroupNorm`, `LayerNorm`) on `tests/test_kron_norm.py`'s
 BNCNN and on WideResNet-16 at widen 1 on 8x8 inputs, and a bare parameter
 under no layer (`tests/test_kron_generic_block.py`'s generic exact block;
-the interleaved Einsum there is `ROADMAP.md` §1 item 5).
+its interleaved Einsum is in `tests/test_torch_dense_general_taps.py`), and
+a DenseGeneral, which gets Kron factors under every policy.
 
 The same factors, the same "zero curvature" warning and the same exception
 class as the JAX package, under each policy. Oracles mirrored:
@@ -15,6 +16,7 @@ entry, log marginal likelihoods 1e-8 relative, predictives 1e-8 absolute.
 
 import warnings
 
+import flax.linen as fnn
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -24,11 +26,13 @@ import torch
 from laplace_jax import KronLaplace as JaxKron
 from laplace_jax import KronLLLaplace as JaxKronLL
 from laplace_jax.curvature.backend import CurvatureBackend as JaxBackend
+from laplace_jax.nnmodel import NNModel as JaxNNModel
 from laplace_jax.utils.data import ArrayLoader as JaxLoader
 from laplace_jax_torch import DiagLaplace, KronLaplace, KronLLLaplace
 from laplace_jax_torch.curvature import kfac
 from laplace_jax_torch.curvature.backend import CurvatureBackend
 from laplace_jax_torch.models.flax_layers import DenseGeneral
+from laplace_jax_torch.models.resnet import state_dict_from_flax
 from laplace_jax_torch.nnmodel import NNModel
 from laplace_jax_torch.utils.data import ArrayLoader
 
@@ -354,20 +358,33 @@ class _DGNet(torch.nn.Module):
         return self.Dense_0(torch.tanh(self.DenseGeneral_0(x)))
 
 
+class _FlaxDGNet(fnn.Module):
+    @fnn.compact
+    def __call__(self, x):
+        return fnn.Dense(2)(jnp.tanh(fnn.DenseGeneral(4)(x)))
+
+
 @pytest.mark.parametrize("policy", POLICIES)
 def test_dense_general_leaves_are_item_5(policy):
-    """A DenseGeneral's leaves, which the JAX package factors: zero groups
-    and the warning under 'skip' (as before), `NotImplementedError` naming
-    `ROADMAP.md` §1 item 5 under 'block' and 'raise' (no exact block where
-    the JAX package has Kron factors)."""
-    net = _DGNet().double()
+    """A DenseGeneral's leaves get the JAX package's Kron factors under
+    every policy: the kernel (A, B), the bias (B,); no warning, nothing
+    raised, and the same factors and marglik as the JAX package's fit."""
     X = np.random.default_rng(0).standard_normal((6, 3))
-    la = KronLaplace(net, "classification", backend_kwargs={"kron_unsupported": policy},
-                     device="cpu")
-    loader = ArrayLoader(X, np.arange(6) % 2, batch_size=3)
-    if policy == "skip":
-        with pytest.warns(UserWarning, match="zero curvature"):
-            la.fit(loader)
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 5"):
-        la.fit(loader)
+    params = _FlaxDGNet().init(jax.random.key(0), jnp.asarray(X[:1]))
+    params = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float64), params)
+    net = _DGNet().double()
+    net.load_state_dict(state_dict_from_flax(params, net))
+    kw = {"backend_kwargs": {"kron_unsupported": policy}}
+    y = np.arange(6) % 2
+    jla = JaxKron(JaxNNModel.from_flax(_FlaxDGNet(), params), "classification", **kw)
+    jla.fit(JaxLoader(X, y, batch_size=3))
+    la = KronLaplace(net, "classification", device="cpu", **kw)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        la.fit(ArrayLoader(X, y, batch_size=3))
+    specs = [s.path for s in la.model.leaf_specs]
+    assert [len(F) for F in la.H_facs.kfacs] == [1, 2, 1, 2]
+    assert specs[:2] == [("DenseGeneral_0", "bias"), ("DenseGeneral_0", "kernel")]
+    kron_close(la.H_facs, jla.H_facs)
+    np.testing.assert_allclose(float(la.log_marginal_likelihood()),
+                               float(jla.log_marginal_likelihood()), rtol=1e-8)

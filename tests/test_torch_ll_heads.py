@@ -8,8 +8,9 @@ in the port against `laplace_jax` in float64.
   head, and KronLL on the 2-D conv head: H (or the Kron factors), the log
   marginal likelihood and the probit predictive against the JAX package's,
   and the NN predictive's sampled forward on the same posterior samples.
-- KronLL on a head the port's KFAC taps do not cover (DenseGeneral,
-  LayerNorm, 1-D conv) raises `NotImplementedError`.
+- KronLL on a head the port's KFAC taps do not cover (LayerNorm, 1-D
+  conv) raises `NotImplementedError`; on a DenseGeneral head it fits, with
+  the JAX package's Kron factors, marglik and probit.
 - FunctionalLL on the same three heads, found or named, takes the
   per-sample Jacobians over the head's leaves. The JAX package's
   FunctionalLL takes φ⊗I on every head, so it is not the reference here:
@@ -307,15 +308,37 @@ class _DGHead(nn.Module):
         return self.DenseGeneral_0(torch.tanh(x))
 
 
+class _FlaxDGHead(fnn.Module):
+    @fnn.compact
+    def __call__(self, x):
+        return fnn.DenseGeneral(2)(jnp.tanh(x))
+
+
 def test_kron_ll_on_dense_general_head_raises():
-    net = _DGHead().double()
+    """KronLL on a DenseGeneral head, named and found, fits as the JAX
+    package's does: the head's Kron factors, marglik and probit."""
     X = np.random.default_rng(0).standard_normal((4, 3))
-    loader = ArrayLoader(X, np.zeros(4, dtype=int), batch_size=2)
+    y = np.array([0, 1, 1, 0])
+    params = _FlaxDGHead().init(jax.random.key(0), jnp.asarray(X[:1]))
+    params = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float64), params)
+    net = _DGHead().double()
+    net.load_state_dict(state_dict_from_flax(params, net))
+    loader = ArrayLoader(X, y, batch_size=2)
     assert NNModel(net).find_last_layer(torch.as_tensor(X)) == ("DenseGeneral_0",)
-    with pytest.raises(NotImplementedError, match="DenseGeneral"):
-        KronLLLaplace(net, "classification", last_layer_name="DenseGeneral_0", device="cpu")
-    with pytest.raises(NotImplementedError, match="items 3 and 5"):
-        Laplace(net, "classification", device="cpu").fit(loader)
+    jla = JaxKronLL(JaxNNModel.from_flax(_FlaxDGHead(), params), "classification",
+                    last_layer_name="DenseGeneral_0")
+    jla.fit(JaxLoader(X, y, batch_size=2))
+    for la in (KronLLLaplace(net, "classification", last_layer_name="DenseGeneral_0",
+                             device="cpu"),
+               Laplace(net, "classification", device="cpu")):
+        la.fit(loader)
+        assert la._head_kind == jla._head_kind == "dense_general" and la.n_params == 8
+        for Fj, Ft in zip(jla.H_facs.kfacs, la.H_facs.kfacs):
+            for a, b in zip(Ft, Fj):
+                _close(a, b, REL)
+        np.testing.assert_allclose(float(la.log_marginal_likelihood()),
+                                   float(jla.log_marginal_likelihood()), rtol=REL)
+        _close(la(X), jla(jnp.asarray(X)), PRED)
     la = Laplace(net, "classification", "last_layer", "full", device="cpu")
     la.fit(loader)
     assert la._head_kind == "dense_general" and la.n_params == 8

@@ -37,6 +37,7 @@ from laplace_jax_torch import (
     KronLLLaplace,
     Laplace,
     LLLaplace,
+    LowRankLaplace,
 )
 from laplace_jax_torch.models.resnet import ResNet18, state_dict_from_flax
 from laplace_jax_torch.nnmodel import NNModel
@@ -233,14 +234,14 @@ def test_laplace_defaults_and_keys(pair):
                      (("last_layer", "full"), FullLLLaplace),
                      (("last_layer", "diag"), DiagLLLaplace),
                      (("all", "kron"), KronLaplace), (("all", "full"), FullLaplace),
-                     (("all", "diag"), DiagLaplace)]:
+                     (("all", "diag"), DiagLaplace), (("all", "lowrank"), LowRankLaplace)]:
         assert type(Laplace(tm, "classification", *key, device="cpu")) is cls
     for key, cls, kw in [(("subnetwork", "full"), FullSubnetLaplace, dict(subnetwork_indices=[0])),
                          (("subnetwork", "diag"), DiagSubnetLaplace, dict(subnetwork_indices=[0])),
                          (("all", "gp"), FunctionalLaplace, dict(n_subset=4)),
                          (("last_layer", "gp"), FunctionalLLLaplace, dict(n_subset=4))]:
         assert type(Laplace(tm, "classification", *key, device="cpu", **kw)) is cls
-    for key in [("all", "lowrank"), ("subnetwork", "kron")]:
+    for key in [("subnetwork", "kron"), ("last_layer", "lowrank")]:
         with pytest.raises(ValueError, match="not ported"):
             Laplace(tm, "classification", *key, device="cpu")
 

@@ -22,7 +22,7 @@ from laplace_jax.nnmodel import NNModel as JaxNNModel
 from laplace_jax.ops.im2col import im2col as jax_im2col
 from laplace_jax.utils.data import ArrayLoader as JaxLoader
 from laplace_jax.utils.flatten import tree_to_vector
-from laplace_jax_torch import KronLaplace, Laplace
+from laplace_jax_torch import KronLaplace, Laplace, LowRankLaplace
 from laplace_jax_torch.models.resnet import ResNet18, state_dict_from_flax
 from laplace_jax_torch.ops.im2col import im2col
 from laplace_jax_torch.utils.data import ArrayLoader
@@ -175,8 +175,10 @@ def test_online_fit_rescales_activation_factor(pair):
 def test_factory_and_device_rule(pair):
     la = Laplace(pair["tm"], "classification", "all", "kron", device="cpu")
     assert isinstance(la, KronLaplace)
+    assert isinstance(Laplace(pair["tm"], "classification", "all", "lowrank", device="cpu"),
+                      LowRankLaplace)
     with pytest.raises(ValueError, match="not ported"):
-        Laplace(pair["tm"], "classification", "all", "lowrank", device="cpu")
+        Laplace(pair["tm"], "classification", "subnetwork", "kron", device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             KronLaplace(pair["tm"], "classification")

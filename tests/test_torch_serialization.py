@@ -18,7 +18,8 @@ port and `laplace_jax`, in float64 on the JAX package's toy MLP (3 -> 20 ->
   `np.load(..., allow_pickle=False)` reads it.
 - The error cases of `tests/test_serialization_breadth.py:51-134`, with the
   JAX package's messages.
-`LowRankLaplace` is not ported and is left out.
+`LowRankLaplace`'s save and load, in both packages, are held in
+`tests/test_torch_lowrank.py`.
 """
 
 import json
