@@ -167,14 +167,34 @@ Phases, each printing one JSON line; any failed check exits non-zero:
              100 tuning steps); float64 on the card against the CPU at 1
              block, d 64, vocab 256 (Kron factors, tap diagonal, Lanczos
              eigenpairs from one start vector) within 1e-9.
+14. conv_variants - the conv half of tap breadth at full width, float32,
+             512 inputs in batches of 128, 10 classes: a CIFAR-shaped 2-D net
+             of flax `Conv` twins at ResNet-18's stage widths (a PixelCNN
+             mask, input dilation, CIRCULAR padding, 2 groups, a masked
+             depthwise conv; 2.3M weights), a 1-D net of `nn.Conv1d` (128
+             positions, 64 channels) and a 3-D net of `nn.Conv3d` with the
+             `InstanceNorm` twin (16^3 voxels): all-weights `KronLaplace`
+             (2-D and 1-D under `kron_unsupported="raise"`, 3-D under "skip",
+             warning of its InstanceNorm leaves alone, and "block"; v1 on the
+             512-1152 classes, v4 on the grouped conv's 2304; launches
+             against `expected_panels`, every panel of each net's last fit
+             held to its plain version, eigenvalues against float64
+             `eigvalsh`, 100 marglik steps, the probit on 64 inputs);
+             `DiagLaplace` through the taps (peak memory, the taps against
+             the Jacobian path on 4 inputs); `KronLLLaplace` on the 1-D net's
+             conv head; a `DenseGeneral(batch_dims=(0,))` model at batch 4,
+             whose whole-batch Jacobian fallback warns and whose
+             `FullLaplace` fit launches syrk, held to `syrk_plain`; float64
+             on the card against the CPU at an eighth of the widths (Kron
+             factors, tap diagonals) within 1e-9.
 The `last_layer` phase also runs the bridge, bridge_norm and MC links on
 its KronLL (rows sum to 1).
 
 Then the kernel summary line (with `main_path_ms`, `route_ms`,
 `stream_bound_ms` and v2's `ms_3x4608` where measured, and
 `launches_by_path`: each kernel's launches on the marglik_training,
-regression, subnet, reward, backends, transformer and serialization
-paths), the
+regression, subnet, reward, backends, transformer, conv_variants and
+serialization paths), the
 `nvidia-smi` line, and last
 `{"ok": true, "device": {...}}`. Without a CUDA device, or outside the
 repository checkout, it exits non-zero and prints no result.
@@ -1135,15 +1155,23 @@ def bench_cnn(seed, dtype):
     return net.to(dtype)
 
 
-def path_panels_vs_plain(kernel, plain, inputs):
+def path_panels_vs_plain(kernel, plain, inputs, bitwise=True, lower_only=False):
     """A panel kernel on the windows a path gave it
-    (`PanelTally(keep=True).inputs`): bitwise over two float32 launches,
-    and its float32 outputs, and its float64 outputs on the same window in
-    float64, within RESIDUAL_TOL of the contract's recurrences. Its error
-    against the float64 plain panel stands beside the plain float32
-    panel's, and beside the lower-half-matvec plain float32 panel's (two
-    correct float32 panels): on nearly deflated windows these scatter
-    beyond PANEL_TOL, so they are reported, not checked."""
+    (`PanelTally(keep=True).inputs`): bitwise over two float32 launches
+    (reported only with `bitwise=False`: v4 adds with atomics, so its
+    float32 outputs vary from launch to launch on a window whose
+    reflectors are not trivial), and its float32 outputs, and its float64
+    outputs on the same window in float64, within RESIDUAL_TOL of the
+    contract's recurrences. With `lower_only=True` (a kernel that reads
+    only the lower triangle, v4) each window is first mirrored from its
+    lower triangle: a path's windows (a float32 Gram `a.T @ a` on the card, and
+    the trailing windows built from it) are symmetric only to float32
+    rounding, and the recurrences read whole columns, so they hold the
+    kernel to the window it reads. Its error against the float64 plain
+    panel stands beside the plain float32 panel's, and beside the
+    lower-half-matvec plain float32 panel's (two correct float32 panels):
+    on nearly deflated windows these scatter beyond PANEL_TOL, so they are
+    reported, not checked."""
     import torch
 
     from laplace_jax_torch.ops.tridiag import lower_half_matvec, panel_plain, panel_residual
@@ -1154,6 +1182,8 @@ def path_panels_vs_plain(kernel, plain, inputs):
     out = {}
     for (K, m, _, _), (Aw, off, q_base, n_real, nb) in inputs.items():
         args = (off, q_base, n_real, nb)
+        if lower_only:
+            Aw = Aw.tril() + Aw.tril(-1).mT
         got, again = kernel(Aw, *args), kernel(Aw, *args)
         A64 = Aw.double()
         got64 = kernel(A64, *args)
@@ -1165,16 +1195,18 @@ def path_panels_vs_plain(kernel, plain, inputs):
             residual=float(panel_residual(Aw, *args, *got).max()),
             residual_f64=float(panel_residual(A64, *args, *got64).max()),
             plain_residual=float(panel_residual(Aw, *args, *ref).max()),
+            plain_residual_f64=float(panel_residual(A64, *args, *exact).max()),
             rel_err=worst(got, ref), err_vs_f64=worst(got, exact), plain_err_vs_f64=worst(ref, exact),
             lower_plain_err_vs_f64=worst(lower, exact),
             repeat_bitwise=all(bool(torch.equal(g, r)) for g, r in zip(got, again)))
-        check(row["repeat_bitwise"], f"{kernel.__name__} {key}: two launches on one window differ")
+        check(row["repeat_bitwise"] or not bitwise,
+              f"{kernel.__name__} {key}: two launches on one window differ")
         check(row["residual"] <= RESIDUAL_TOL["float32"],
               f"{kernel.__name__} {key}: float32 residual {row['residual']:.3e} > "
               f"{RESIDUAL_TOL['float32']} (plain float32 {row['plain_residual']:.3e})")
         check(row["residual_f64"] <= RESIDUAL_TOL["float64"],
               f"{kernel.__name__} {key}: float64 residual {row['residual_f64']:.3e} > "
-              f"{RESIDUAL_TOL['float64']}")
+              f"{RESIDUAL_TOL['float64']} (plain float64 {row['plain_residual_f64']:.3e})")
     return out
 
 
@@ -2574,7 +2606,7 @@ def transformer_phase(seed, device, smi):
             r["v1_panels"] = path_panels_vs_plain(latrd_panel, latrd_panel_plain,
                                                   tally.inputs["latrd_panel"])
             r["v4_panels"] = path_panels_vs_plain(latrd_panel_v4, latrd_panel_v4_plain,
-                                                  tally.inputs["latrd_panel_v4"])
+                                                  tally.inputs["latrd_panel_v4"], lower_only=True)
             r["panels_checked"] = {k: len(v) for k, v in tally.inputs.items()}
             timed(r, "marglik_100_steps_s", lambda: la.optimize_prior_precision(n_steps=100))
             probs = timed(r, "probit_64_s", lambda: la(ids[:64], fitting=True))
@@ -2706,6 +2738,284 @@ def transformer_phase(seed, device, smi):
     for k, e in errs.items():
         check(e <= TRANSFORMER_F64_TOL,
               f"float64 card vs CPU: {k} off by {e:.3e} > {TRANSFORMER_F64_TOL}")
+    return total
+
+
+# the conv_variants phase: the conv half of tap breadth at full width on the
+# main path's sizes (CONV_N inputs in batches of CONV_BATCH, 10 classes),
+# float32; its factor classes n >= 512, and float64 card vs CPU at the widths
+# divided by CONV_SMALL_DIV on CONV_SMALL_N inputs
+CONV_N, CONV_BATCH, CONV_TEST = 512, 128, 64
+CONV_CLASSES = {"conv2d": {512: 7, 576: 1, 1152: 3, 2304: 1}, "conv1d": {768: 2},
+                "conv3d": {864: 1}}
+CONV_POLICIES = {"conv2d": ("raise",), "conv1d": ("raise",), "conv3d": ("skip", "block")}
+CONV_SMALL_DIV, CONV_SMALL_N = 8, 16
+CONV_F64_TOL = 1e-9
+
+
+CONV_SHAPES = {"conv2d": (32, 32, 3), "conv1d": (128, 64), "conv3d": (16, 16, 16, 4)}
+
+
+def conv_variant_data(seed, n, div=1):
+    """{net: (inputs, labels)}: `n` standard-normal inputs of each net's
+    shape (the 1-D net's channels divided by `div`) and labels of 10
+    classes, from `seed`."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 7)
+    out = {}
+    for name, shape in CONV_SHAPES.items():
+        if name == "conv1d":
+            shape = (shape[0], shape[1] // div)
+        out[name] = (rng.standard_normal((n,) + shape).astype(np.float32),
+                     rng.integers(0, 10, size=n))
+    return out
+
+
+def skip_listed(caught) -> list:
+    """The leaves a "zero curvature" warning lists."""
+    msgs = {str(c.message) for c in caught if "zero curvature" in str(c.message)}
+    return sorted({p.strip(" '") for m in msgs for p in m[m.index("[") + 1:m.index("]")].split(",")})
+
+
+def conv_variants_phase(seed, device, smi):
+    """The conv half of tap breadth at full width, float32, on the main
+    path's sizes (`models/conv_variants.py`: a 2-D net of grouped, circular,
+    input-dilated and masked flax `Conv` twins at ResNet-18's widths, a 1-D
+    and a 3-D net of torch convs): all-weights `KronLaplace` (the 2-D and
+    1-D nets under `kron_unsupported="raise"`, so every leaf is tapped; the
+    3-D net under "skip", whose warning names only its InstanceNorm leaves,
+    and "block"), v1 and v4 launches against `expected_panels`, every panel
+    of each net's last fit held to its plain version, eigenvalues against
+    float64 `eigvalsh`, 100 marglik steps and the probit on 64 inputs;
+    `DiagLaplace` through the taps (peak memory; against the Jacobian path
+    on 4 inputs); `KronLLLaplace` on the 1-D net's conv head; a model
+    shape-coupled to the batch (`DenseGeneral(batch_dims=(0,))`, batch 4):
+    the whole-batch Jacobian fallback warns and its `FullLaplace` fit
+    launches syrk, held to `syrk_plain`; float64 on the card against the
+    CPU at reduced width (Kron factors, tap diagonals). Returns the v1, v4
+    and syrk launches of its fits."""
+    import numpy as np
+    import torch
+    from torch import nn
+
+    from laplace_jax_torch import DiagLaplace, FullLaplace, KronLaplace, KronLLLaplace
+    from laplace_jax_torch.curvature.backend import CurvatureBackend
+    from laplace_jax_torch.models.conv_variants import conv_variant_nets
+    from laplace_jax_torch.models.flax_layers import DenseGeneral
+    from laplace_jax_torch.nnmodel import NNModel
+    from laplace_jax_torch.ops.latrd import latrd_panel, latrd_panel_plain
+    from laplace_jax_torch.ops.latrd_v4 import latrd_panel_v4, latrd_panel_v4_plain
+    from laplace_jax_torch.ops.syrk import syrk_plain
+    from laplace_jax_torch.utils.data import ArrayLoader
+    from laplace_jax_torch.utils.device import full_f32
+
+    t_start = time.perf_counter()
+    nets = conv_variant_nets(seed, torch.float32)
+    data = conv_variant_data(seed, CONV_N + CONV_TEST)
+    res = dict(phase="conv_variants", nvidia_smi=smi, n_data=CONV_N, batch=CONV_BATCH,
+               dtype="float32", nets={})
+    total = {"latrd_panel": 0, "latrd_panel_v4": 0, "syrk": 0}
+
+    def count(launches):
+        for k, v in launches.items():
+            total[k] += v
+
+    for name, net in nets.items():
+        X, y = data[name]
+        loader = ArrayLoader(X[:CONV_N], y[:CONV_N], batch_size=CONV_BATCH)
+        X_test = X[CONV_N:]
+        r = res["nets"][name] = dict(n_weights=sum(p.numel() for p in net.parameters()),
+                                     kron={})
+        for policy in CONV_POLICIES[name]:
+            k = r["kron"][policy] = {}
+            last = policy == CONV_POLICIES[name][-1]
+            la = KronLaplace(net, "classification", backend_kwargs={"kron_unsupported": policy},
+                             device=device)
+            zero_launches()
+            with warnings.catch_warnings(record=True) as caught, PanelTally(keep=last) as tally:
+                warnings.simplefilter("always")
+                timed(k, "fit_s", lambda: la.fit(loader))
+            k["launches"] = kernel_launches(*MAIN_LAUNCHES)
+            count(k["launches"])
+            specs = la.model.leaf_specs
+            k.update(accumulate_s=la.fit_seconds["accumulate"],
+                     decompose_s=la.fit_seconds["decompose"], classes=classes(la.H_facs),
+                     expected_launches=expected_panels(la.H_facs), skip_listed=skip_listed(caught),
+                     zero_groups=["/".join(s.path) for s, F in zip(specs, la.H_facs.kfacs)
+                                  if all(float(H.abs().max()) == 0 for H in F)],
+                     eig_rel_err_vs_eigh=kernel_eig_err(la),
+                     log_marglik=float(la.log_marginal_likelihood()))
+            if last:
+                k["v1_panels"] = path_panels_vs_plain(latrd_panel, latrd_panel_plain,
+                                                      tally.inputs["latrd_panel"])
+                k["v4_panels"] = path_panels_vs_plain(latrd_panel_v4, latrd_panel_v4_plain,
+                                                      tally.inputs["latrd_panel_v4"],
+                                                      bitwise=False, lower_only=True)
+                k["panels_checked"] = {p: len(v) for p, v in tally.inputs.items()}
+                timed(k, "marglik_100_steps_s", lambda: la.optimize_prior_precision(n_steps=100))
+                probs = timed(k, "probit_64_s", lambda: la(X_test))
+                k.update(prior_precision=float(la.prior_precision[0]),
+                         tuned_log_marglik=float(la.log_marginal_likelihood()),
+                         probit_finite=bool(torch.isfinite(probs).all()),
+                         probit_row_sum_err=float((probs.sum(-1) - 1).abs().max()))
+            del la, tally
+
+        # the diagonal through the taps, against the Jacobian path on 4 inputs
+        d = r["diag"] = {}
+        x4, y4 = (torch.as_tensor(a[:4], device=device) for a in (X, y))
+        dla = DiagLaplace(net, "classification", device=device)
+        torch.cuda.reset_peak_memory_stats()
+        timed(d, "fit_s", lambda: dla.fit(loader))
+        d["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
+        d["mem_limit_gb"], d["tap_grads_gb"] = tap_memory_limit(dla.model, x4[:1], 10,
+                                                                CONV_BATCH)
+        with full_f32():
+            _, d_tap = dla.backend.diag(x4, y4)
+            d_jac = jacobian_diag(dla.backend, x4, y4)
+        d.update(tap_vs_jacobian_4_rel_err=rel_err(d_tap, d_jac),
+                 log_marglik=float(dla.log_marginal_likelihood()))
+        del dla, d_tap, d_jac
+
+    # one batch of the 2-D net's Kron accumulate under the profiler: the
+    # card's busy share and its kernels with the most device time
+    from torch.profiler import ProfilerActivity, profile
+
+    be = CurvatureBackend(NNModel(nets["conv2d"]), "classification")
+    x0, y0 = (torch.as_tensor(a[:CONV_BATCH], device=device) for a in data["conv2d"])
+    acc = res["conv2d_accumulate_batch"] = {}
+    with full_f32():
+        be.kron(x0, y0, CONV_N)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            timed(acc, "s", lambda: be.kron(x0, y0, CONV_N))
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type.name == "CUDA":
+            by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) / 1e6
+    acc.update(device_s=sum(by_name.values()),
+               top_kernels_s=dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:6]))
+    del be, x0, y0, prof
+
+    # KronLL on the 1-D net's conv head
+    X, y = data["conv1d"]
+    ll = res["kron_ll_conv1d_head"] = {}
+    la = KronLLLaplace(nets["conv1d"], "classification", device=device)
+    zero_launches()
+    timed(ll, "fit_s", lambda: la.fit(ArrayLoader(X[:CONV_N], y[:CONV_N],
+                                                  batch_size=CONV_BATCH)))
+    ll["launches"] = kernel_launches(*MAIN_LAUNCHES)
+    count(ll["launches"])
+    probs = timed(ll, "probit_64_s", lambda: la(X[CONV_N:]))
+    ll.update(head=list(la.last_layer_path), head_kind=la._head_kind, n_params=la.n_params,
+              classes=classes(la.H_facs), expected_launches=expected_panels(la.H_facs),
+              eig_rel_err_vs_eigh=kernel_eig_err(la),
+              log_marglik=float(la.log_marginal_likelihood()),
+              probit_finite=bool(torch.isfinite(probs).all()),
+              probit_row_sum_err=float((probs.sum(-1) - 1).abs().max()))
+    del la
+
+    # a model shape-coupled to the batch: the whole-batch Jacobian fallback
+    class BatchCoupled(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.DenseGeneral_0 = DenseGeneral(5, 4, batch_dims=(0,), batch_shape=(4,),
+                                               generator=torch.Generator().manual_seed(seed))
+
+        def forward(self, x):
+            return self.DenseGeneral_0(x).mean(1)
+
+    rng = np.random.default_rng(seed + 8)
+    Xb, yb = rng.standard_normal((4, 3, 5)).astype(np.float32), np.arange(4)
+    fb = res["batch_fallback"] = {}
+    coupled = BatchCoupled()
+    full = FullLaplace(coupled, "classification", device=device)
+    zero_launches()
+    with warnings.catch_warnings(record=True) as caught, SyrkTally() as tally:
+        warnings.simplefilter("always")
+        full.fit(ArrayLoader(Xb, yb, batch_size=4))
+    fb["launches"] = kernel_launches("syrk")
+    count(fb["launches"])
+    ref = FullLaplace(copy.deepcopy(coupled).double(), "classification", device="cpu")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        ref.fit(ArrayLoader(Xb.astype(np.float64), yb, batch_size=4))
+    fb.update(warned=any("QUADRATIC" in str(c.message) and c.category is RuntimeWarning
+                         for c in caught),
+              syrk_per_launch=[dict(shape=list(M.shape), rel_err=rel_err(H, syrk_plain(M)),
+                                    exactly_symmetric=bool(torch.equal(H, H.mT)))
+                               for M, H in tally.calls],
+              H_rel_err_vs_cpu_f64=rel_err(full.H, ref.H),
+              log_marglik=float(full.log_marginal_likelihood()))
+    del full, ref
+
+    # float64 on the card against the CPU at reduced width
+    small = conv_variant_nets(seed, torch.float64, CONV_SMALL_DIV)
+    sdata = conv_variant_data(seed, CONV_SMALL_N, CONV_SMALL_DIV)
+    errs = {}
+    for name, net in small.items():
+        X, y = sdata[name]
+        loader = ArrayLoader(X.astype(np.float64), y, batch_size=CONV_SMALL_N // 2)
+        policy = "block" if name == "conv3d" else "raise"
+        out = []
+        for dev in (device, torch.device("cpu")):
+            kron = KronLaplace(net, "classification",
+                               backend_kwargs={"kron_unsupported": policy}, device=dev)
+            kron.fit(loader)
+            diag = DiagLaplace(net, "classification", device=dev)
+            diag.fit(loader)
+            out.append((torch.cat([H.reshape(-1).cpu() for F in kron.H_facs.kfacs for H in F]),
+                        diag.H.cpu()))
+        errs[f"{name}_kron"] = rel_err(out[0][0], out[1][0])
+        errs[f"{name}_diag"] = rel_err(out[0][1], out[1][1])
+    res.update(f64_width_div=CONV_SMALL_DIV, f64_n=CONV_SMALL_N, f64_rel_err_card_vs_cpu=errs)
+    res["launches"] = total
+    res["phase_s"] = time.perf_counter() - t_start
+    emit(res)
+
+    for name, r in res["nets"].items():
+        for policy, k in r["kron"].items():
+            tag = f"{name} {policy}"
+            check(k["classes"] == CONV_CLASSES[name],
+                  f"{tag}: factor classes {k['classes']}, not {CONV_CLASSES[name]}")
+            check(k["launches"] == k["expected_launches"],
+                  f"{tag}: launches {k['launches']}, its classes give {k['expected_launches']}")
+            check(k["eig_rel_err_vs_eigh"] <= EIG_TOL,
+                  f"{tag}: eigenvalues off by {k['eig_rel_err_vs_eigh']:.3e} > {EIG_TOL}")
+            check(math.isfinite(k["log_marglik"]), f"{tag}: marglik is not finite")
+            if policy == "skip":  # only the InstanceNorm leaves, each a zero group
+                check(k["skip_listed"] and all(p.startswith("InstanceNorm_")
+                                               for p in k["skip_listed"])
+                      and set(k["zero_groups"]) == set(k["skip_listed"]),
+                      f"{tag}: warned about {k['skip_listed']}, zero groups {k['zero_groups']}")
+            else:
+                check(not k["skip_listed"] and not k["zero_groups"],
+                      f"{tag}: warned about {k['skip_listed']}, zero groups {k['zero_groups']}")
+            if "panels_checked" in k:
+                check(k["panels_checked"] == k["launches"],
+                      f"{tag}: panels held to plain {k['panels_checked']}, launched "
+                      f"{k['launches']}")
+                check(math.isfinite(k["tuned_log_marglik"]) and k["probit_finite"]
+                      and k["probit_row_sum_err"] <= 1e-5, f"{tag} after tuning: {k}")
+        d = r["diag"]
+        check(d["peak_mem_gb"] <= d["mem_limit_gb"],
+              f"{name} DiagLaplace fit peaked at {d['peak_mem_gb']:.2f} GiB > "
+              f"{d['mem_limit_gb']:.2f}")
+        check(d["tap_vs_jacobian_4_rel_err"] <= BACKEND_TOL,
+              f"{name} tap diagonal off the Jacobian path by {d['tap_vs_jacobian_4_rel_err']:.3e}")
+        check(math.isfinite(d["log_marglik"]), f"{name} DiagLaplace marglik is not finite")
+    check(ll["head"] == ["Conv_2"] and ll["head_kind"] == "conv"
+          and ll["classes"] == {768: 1} and ll["launches"] == ll["expected_launches"]
+          and ll["eig_rel_err_vs_eigh"] <= EIG_TOL and math.isfinite(ll["log_marglik"])
+          and ll["probit_finite"] and ll["probit_row_sum_err"] <= 1e-5,
+          f"KronLL on the 1-D conv head: {ll}")
+    check(fb["warned"], "the batch-coupled fit did not warn of the whole-batch fallback")
+    check(fb["launches"] == {"syrk": 1} and len(fb["syrk_per_launch"]) == 1
+          and all(c["rel_err"] <= SYRK_TOL["float32"] and c["exactly_symmetric"]
+                  for c in fb["syrk_per_launch"]), f"the fallback's FullLaplace syrk: {fb}")
+    check(fb["H_rel_err_vs_cpu_f64"] <= BACKEND_TOL and math.isfinite(fb["log_marglik"]),
+          f"the fallback's FullLaplace H off float64 on the CPU: {fb}")
+    for k, e in errs.items():
+        check(e <= CONV_F64_TOL, f"float64 card vs CPU: {k} off by {e:.3e} > {CONV_F64_TOL}")
     return total
 
 
@@ -2881,6 +3191,9 @@ def main() -> None:
     # the reward transformer with all its weights: v1 on its 1024 class, v4
     # on the Embed's diagonal 4096 factor
     by_path["transformer"] = transformer_phase(args.seed, device, smi)
+    # the conv variants: v1 on their 512-1152 classes, v4 on the grouped
+    # conv's 2304 class, syrk on the batch-coupled model's FullLaplace
+    by_path["conv_variants"] = conv_variants_phase(args.seed, device, smi)
     by_path["serialization"] = serialization_phase(keep, device, smi, main["decompose_s"])
 
     keys = ("name", "route", "source", "replaces", "max_abs_err", "ms", "plain_ms",

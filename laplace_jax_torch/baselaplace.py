@@ -46,7 +46,7 @@ import torch
 
 from laplace_jax_torch.curvature.backend import CurvatureBackend
 from laplace_jax_torch.enums import Likelihood, LinkApprox, PredType, PriorStructure, TuningMethod
-from laplace_jax_torch.nnmodel import NNModel, batch_slice, unpack_batch
+from laplace_jax_torch.nnmodel import NNModel, unpack_batch
 from laplace_jax_torch.utils.data import dataset_size
 from laplace_jax_torch.utils.device import full_f32, resolve_device, to_device
 from laplace_jax_torch.utils.flatten import parameters_to_vector
@@ -462,8 +462,7 @@ class ParametricLaplace(BaseLaplace):
         self.mean = parameters_to_vector(self.model.module, self.model.leaf_specs,
                                          detach=not self.enable_backprop)
         X, y = self._unpack_batch(next(iter(train_loader)))
-        with torch.no_grad():
-            out = self.model.apply(batch_slice(self._tensor(X), slice(0, 1)))
+        out = self.model.output_probe(self._tensor(X))
         self.n_outputs = out.shape[-1]
         y_ndim = y.ndim if hasattr(y, "ndim") else np.ndim(y)
         if self.likelihood == Likelihood.REGRESSION and y_ndim != out.ndim:
@@ -945,8 +944,7 @@ class LowRankLaplace(ParametricLaplace):
         self.mean = parameters_to_vector(self.model.module, self.model.leaf_specs,
                                          detach=not self.enable_backprop)
         X, y = self._unpack_batch(next(iter(train_loader)))
-        with torch.no_grad():
-            out = self.model.apply(batch_slice(self._tensor(X), slice(0, 1)))
+        out = self.model.output_probe(self._tensor(X))
         y_ndim = y.ndim if hasattr(y, "ndim") else np.ndim(y)
         if self.likelihood == Likelihood.REGRESSION and y_ndim != out.ndim:
             raise ValueError(f"The model's output has {out.ndim} dims but the target has "

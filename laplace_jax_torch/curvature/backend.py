@@ -27,6 +27,8 @@ MC draws come from the caller's `torch.Generator` (`kfac.mc_draws`).
 
 from __future__ import annotations
 
+import warnings
+
 import torch
 from torch.func import functional_call, grad, hessian, vmap
 
@@ -34,7 +36,7 @@ from laplace_jax_torch.curvature import kfac
 from laplace_jax_torch.curvature.diag_taps import TapUnsupported, diag_curvature_taps
 from laplace_jax_torch.curvature.kfac import _sqrt_hessian_cotangents, kfac_factors
 from laplace_jax_torch.enums import Likelihood
-from laplace_jax_torch.nnmodel import batch_len, batch_slice
+from laplace_jax_torch.nnmodel import batch_len, batch_slice, shape_error
 from laplace_jax_torch.ops.syrk import syrk
 from laplace_jax_torch.utils.flatten import to_flax_layout, vector_to_parameters
 
@@ -47,8 +49,12 @@ def mse_sum(f: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 
 def cross_entropy_sum(f: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """The summed cross-entropy; labels broadcast against the outputs' rows,
+    as `jnp.take_along_axis` broadcasts them in the JAX package."""
     logp = torch.log_softmax(f, dim=-1)
-    return -torch.gather(logp, -1, y[..., None].long()).sum()
+    idx = y[..., None].long()
+    return -torch.gather(logp, -1, idx.expand(*torch.broadcast_shapes(
+        idx.shape[:-1], logp.shape[:-1]), 1)).sum()
 
 
 class CurvatureBackend:
@@ -133,23 +139,48 @@ class CurvatureBackend:
         One backward pass per sample, each batched over the C outputs. A
         sample's (C, n_params) rows are cut to the subnetwork before the
         next, so no (batch, outputs, n_params) array exists then.
+
+        A model whose parameters are shape-coupled to the batch (a
+        `DenseGeneral` with `batch_dims`) cannot run one sample: when the
+        one-sample forward or its backward fails with a shape error, a
+        `RuntimeWarning` says so and the Jacobian of the whole batch's
+        forward is taken, whose memory is quadratic in the batch size (the
+        JAX package's fallback, `laplace_jax/curvature/backend.py:30-48`).
+        An error that fails the whole batch too, or any other, propagates.
         """
-        params = self.model.params_in_order()
         idx = self.subnetwork_indices
         rows = []
-        with torch.enable_grad():
-            for b in range(batch_len(x)):
-                fb = self.model.apply(batch_slice(x, slice(b, b + 1)))[0]
-                C = fb.shape[0]
-                eye = torch.eye(C, dtype=fb.dtype, device=fb.device)
-                gs = torch.autograd.grad(fb, params, grad_outputs=eye,
-                                         is_grads_batched=True, create_graph=create_graph)
-                row = torch.cat([to_flax_layout(g, s.layout, lead=1).reshape(C, -1)
-                                 for s, g in zip(self.model.leaf_specs, gs)], 1)
-                rows.append(row if idx is None else row[:, idx])
+        try:
+            with torch.enable_grad():
+                for b in range(batch_len(x)):
+                    fb = self.model.apply(batch_slice(x, slice(b, b + 1)))
+                    rows.append(self._jacobian_rows(fb, create_graph)[0])
+        except (RuntimeError, TypeError, ValueError) as exc:
+            if not shape_error(exc):
+                raise
+            _warn_batch_fallback(exc)
+            # the whole batch's forward: a shape bug fails it too, and raises
+            with torch.enable_grad():
+                f = self.model.apply(x)
+                Js = self._jacobian_rows(f, create_graph)
+            return Js, (f if create_graph else f.detach())
         with torch.set_grad_enabled(create_graph):
             f = self.model.apply(x)
         return torch.stack(rows), f
+
+    def _jacobian_rows(self, f: torch.Tensor, create_graph: bool) -> torch.Tensor:
+        """(B, C, P) derivatives of the outputs f (B, C) of one forward in
+        the trainable leaves, columns in the canonical flat order (or the
+        subnetwork's): one backward pass batched over the B·C outputs, every
+        sample's against the whole batch's graph."""
+        B, C = f.shape
+        eye = torch.eye(B * C, dtype=f.dtype, device=f.device).reshape(B * C, B, C)
+        gs = torch.autograd.grad(f, self.model.params_in_order(), grad_outputs=eye,
+                                 is_grads_batched=True, create_graph=create_graph)
+        J = torch.cat([to_flax_layout(g, s.layout, lead=1).reshape(B * C, -1)
+                       for s, g in zip(self.model.leaf_specs, gs)], 1)
+        idx = self.subnetwork_indices
+        return (J if idx is None else J[:, idx]).reshape(B, C, -1)
 
     # ---- gradients
     def _loss_of_vector(self):
@@ -343,6 +374,13 @@ class CurvatureBackend:
         from laplace_jax_torch.curvature.lanczos import lanczos_eig_curvature
 
         return lanczos_eig_curvature(self, loader, low_rank, generator, unpack)
+
+
+def _warn_batch_fallback(exc: Exception) -> None:
+    warnings.warn(
+        "Per-sample Jacobians failed (model parameters appear shape-coupled to the batch); "
+        "falling back to the whole-batch Jacobian, whose memory is QUADRATIC in batch size. "
+        f"Cause: {exc}", RuntimeWarning, stacklevel=4)
 
 
 def _default_ef_chunk(P: int, itemsize: int = 4) -> int:

@@ -12,7 +12,10 @@ the label gradient for the EF), each layer's diagonal is
   ``d_W[i, o] = Σ_{k,b} (Σ_t a[b, t, i] g[k, b, t, o])²``, the per-sample
   kernel gradients formed for a chunk of samples at a time, so a chunk
   holds at most about `chunk_bytes` of them; ``d_b[o] = Σ_{k,b} (Σ_t
-  g[k, b, t, o])²``;
+  g[k, b, t, o])²``. A conv of G groups pairs each output channel (group
+  major) with its group's patches only, per (group, i, o within the
+  group); a masked conv's kernel diagonal carries mask², as its gradient
+  carries the mask (`laplace_jax/curvature/diag_taps.py:190-241`);
 - a DenseGeneral or Einsum: as a shared Dense, from the tap's activation
   rows (B, T, K) and its cotangent rows in kernel (and bias) flatten order;
   a feature-major ("ok") kernel's diagonal transposed;
@@ -24,13 +27,15 @@ the label gradient for the EF), each layer's diagonal is
 - an `unfactored` Einsum: the exact diagonal of each of its leaves from
   per-sample backward passes through the leaf (`kfac.exact_leaf_accumulate`).
 
-A leaf outside those layers (an untapped conv, a DenseGeneral with
-`batch_dims`, a bare parameter), or a layer run twice, raises
+A leaf outside those layers (a DenseGeneral with `batch_dims`, a bare
+parameter, a conv padded by reflection), or a layer run twice, raises
 `TapUnsupported`, and the backend takes the Jacobian path, which is exact
 too.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -39,9 +44,11 @@ from laplace_jax_torch.curvature.kfac import (
     conv_patches,
     dg_grad_rows,
     exact_leaf_accumulate,
+    group_patches,
     label_cotangents,
     norm_sample_grads,
 )
+from laplace_jax_torch.utils.flatten import CONV, to_flax_layout
 from laplace_jax_torch.enums import Likelihood
 
 __all__ = ["diag_curvature_taps", "TapUnsupported", "CHUNK_BYTES"]
@@ -137,16 +144,18 @@ def _embed_diag(t, g: torch.Tensor) -> torch.Tensor:
 def _shared_weight_diag(t, g: torch.Tensor, chunk_bytes: int):
     """Kernel (in, out) and bias (out,) diagonals of a layer that shares its
     weight over positions, from g (K, B, T, out): the per-sample kernel
-    gradients Σ_t a gᵀ of a chunk of samples at a time."""
+    gradients Σ_t a gᵀ of a chunk of samples at a time; for a conv of G
+    groups, per group, (in / G, out) in the kernel's flatten order."""
     K, B, T, O = g.shape
     inputs = t.inputs.detach()
+    G = t.spec["groups"] if t.kind == "conv" else 1
     if t.kind == "conv":
-        I = t.spec["kernel_size"][0] * t.spec["kernel_size"][1] * inputs.shape[1]
+        I = math.prod(t.spec["kernel_size"]) * inputs.shape[1]
     else:
         I = t.patches.shape[-1] if t.kind == "dense_general" else inputs.shape[-1]
-    per_sample = (K * I * O + T * I) * g.element_size()
+    per_sample = (K * I * O // G + T * I) * g.element_size()
     chunk = max(1, min(B, chunk_bytes // per_sample))
-    dK = torch.zeros(I, O, dtype=g.dtype, device=g.device)
+    dK = torch.zeros(G, I // G, O // G, dtype=g.dtype, device=g.device)
     for b0 in range(0, B, chunk):
         sl = slice(b0, min(B, b0 + chunk))
         if t.kind == "conv":
@@ -155,8 +164,15 @@ def _shared_weight_diag(t, g: torch.Tensor, chunk_bytes: int):
             a = t.patches[sl]
         else:
             a = inputs[sl].reshape(-1, T, I)
-        M = torch.einsum("bti,kbto->kbio", a, g[:, sl])
+        gs = g[:, sl].reshape(K, -1, T, G, O // G)
+        M = torch.einsum("btgi,kbtgo->kbgio", group_patches(a, t.spec["kernel_size"], G)
+                         if G > 1 else a[:, :, None], gs)
         dK += (M * M).sum((0, 1))
+    dK = dK.movedim(0, 1).reshape(I // G, O)  # output channels group-major
+    mask = t.spec["mask"] if t.kind == "conv" else None
+    if mask is not None:
+        m = to_flax_layout(mask, CONV).reshape(-1, O)
+        dK = dK * (m * m)
     gb = g.sum(2)
     return dK, (gb * gb).sum((0, 1))
 

@@ -5,7 +5,9 @@ empirical Fisher, and the `unsupported` policies for leaves outside them).
 Normalization contract, as in the JAX package:
 
 - activation factor ``A = (1/(N*T)) sum_{n,t} a a^T`` (T = spatial positions
-  of a conv's output; for Dense the positions between batch and feature
+  of a conv's output; a conv of G groups averages its groups' patch Grams,
+  ``1/(N*T*G)``, each group's patches in its kernel's `(*k, in / G)` order;
+  for Dense the positions between batch and feature
   axes, 1 on a 2-d input: "expand" KFAC; for a DenseGeneral or Einsum the
   tap's activation rows, in the kernel's contracted order; for an Embed the
   one-hot rows, so ``A = diag(token counts) / (N*T)``);
@@ -19,6 +21,12 @@ Normalization contract, as in the JAX package:
   kron B`` under the flax flatten; a feature-major Einsum kernel, layout
   "ok", the group ``(B, A)``), a bias leaf the group ``(B,)``.
 
+A masked conv (the flax `Conv` twin's `mask`) gets the unmasked layer's
+``(A, B)`` factors, as the JAX package documents
+(`laplace_jax/curvature/kfac.py:24-33`): a Kronecker product cannot zero
+the frozen entries, which the forward multiplies out; the tap diagonal
+carries the mask exactly.
+
 A leaf of an `unfactored` Einsum (no two-factor structure) takes the exact
 dense block of its leaves, under every policy, when it has at most
 `block_max_params` entries. Any other leaf outside the tapped layers
@@ -27,9 +35,7 @@ posterior keeps the prior there); ``"block"`` gives it the exact dense
 1-factor block, from the same sweeps through the norm taps for a norm
 twin's `scale` and `bias`, else from per-sample backward passes through the
 leaf when it has at most `block_max_params` entries; ``"raise"`` raises
-`ValueError`. A leaf of a conv the port does not tap (grouped, circular,
-1-D or 3-D), which the JAX package factors, raises `NotImplementedError`
-under ``"block"`` and ``"raise"`` (`ROADMAP.md` §1 item 5, its conv half).
+`ValueError`.
 """
 
 from __future__ import annotations
@@ -40,21 +46,32 @@ import warnings
 import torch
 
 from laplace_jax_torch.enums import Likelihood
-from laplace_jax_torch.nnmodel import batch_len, batch_slice, kfac_tap
+from laplace_jax_torch.nnmodel import batch_len, batch_slice
 from laplace_jax_torch.ops.im2col import im2col
-from laplace_jax_torch.utils.flatten import layer_kind, to_flax_layout
+from laplace_jax_torch.utils.flatten import to_flax_layout
 from laplace_jax_torch.utils.matrix import Kron
 
-__all__ = ["kfac_factors", "conv_patches", "mc_draws", "dg_grad_rows"]
+__all__ = ["kfac_factors", "conv_patches", "group_patches", "mc_draws", "dg_grad_rows"]
 
 TAPPED = ("dense", "conv", "dense_general", "embed", "unfactored")
 
 def conv_patches(inputs: torch.Tensor, spec: dict) -> torch.Tensor:
-    """Patches of an NCHW conv input as (B, T, kh*kw*c_in), feature order
-    (kh, kw, c_in) like the flax kernel flatten."""
+    """Patches of a (B, C, *S) conv input as (B, T, prod(k)*c_in), feature
+    order (*k, c_in) like the flax kernel flatten."""
     p = im2col(inputs, spec["kernel_size"], spec["strides"], spec["padding"],
-               channels_last=False, dilation=spec.get("dilation"))
+               channels_last=False, dilation=spec["dilation"],
+               input_dilation=spec["input_dilation"], wrap=spec["wrap"])
     return p.reshape(p.shape[0], -1, p.shape[-1])
+
+
+def group_patches(patches: torch.Tensor, ksize, groups: int) -> torch.Tensor:
+    """A (..., prod(k)*c_in) patch axis, c_in in consecutive groups, as
+    (..., groups, prod(k)*c_in/groups), each group in its kernel's flatten
+    order (*k, c_in/groups) (the JAX package's `group_patches`)."""
+    kprod = math.prod(ksize)
+    lead = patches.shape[:-1]
+    p = patches.reshape(*lead, kprod, groups, -1)
+    return p.movedim(-2, len(lead)).reshape(*lead, groups, -1)
 
 
 def _sqrt_hessian_cotangents(f: torch.Tensor, likelihood=Likelihood.CLASSIFICATION) -> torch.Tensor:
@@ -195,11 +212,14 @@ def kfac_factors(model, x, y, N: int, likelihood, lossfunc, fisher_type: str = "
             counts = torch.zeros(t.spec["num_embeddings"], dtype=f.dtype, device=ids.device)
             counts.index_add_(0, ids, torch.ones(ids.shape, dtype=f.dtype, device=ids.device))
             A_facs[t.path] = torch.diag(counts) / (N * max(ids.numel() // t.inputs.shape[0], 1))
-        elif t.kind == "conv":  # (K, B, out, H, W) -> rows of `out`
+        elif t.kind == "conv":  # (K, B, out, *S) -> rows of `out`
             g = g.movedim(2, -1)
             patches = conv_patches(t.inputs.detach(), t.spec)
+            G = t.spec["groups"]
+            if G > 1:  # (group, position) is the weight-sharing axis
+                patches = group_patches(patches, t.spec["kernel_size"], G)
             a = patches.reshape(-1, patches.shape[-1])
-            A_facs[t.path] = a.T @ a / (N * patches.shape[1])
+            A_facs[t.path] = a.T @ a / (N * patches.shape[1] * G)
         else:  # (B, ..., in): every position between batch and feature is a row
             a = t.inputs.detach().reshape(-1, t.inputs.shape[-1])
             A_facs[t.path] = a.T @ a / (N * (a.shape[0] // t.inputs.shape[0]))
@@ -224,8 +244,6 @@ def kfac_factors(model, x, y, N: int, likelihood, lossfunc, fisher_type: str = "
             kfacs.append((norm_blocks[(mod, role)],))
             continue
         unfactored = tap is not None and tap.kind == "unfactored"
-        if not unfactored:
-            _check_untapped_conv(model, spec, unsupported)
         if (unsupported == "block" or unfactored) and spec.size <= block_max_params:
             block_wanted.append((len(kfacs), spec))
         elif unsupported == "raise":
@@ -248,21 +266,6 @@ def kfac_factors(model, x, y, N: int, likelihood, lossfunc, fisher_type: str = "
             "(raise block_max_params if these leaves exceed it), or freeze them via the "
             "trainable mask.")
     return lossfunc(f.detach(), y), Kron(kfacs)
-
-
-def _check_untapped_conv(model, spec, unsupported: str) -> None:
-    """Raise `NotImplementedError` for a leaf of a conv the port's taps do
-    not take (grouped, circular, 1-D, 3-D), which the JAX package factors,
-    unless `unsupported` is "skip", which keeps the zero group."""
-    if unsupported == "skip":
-        return
-    owner = model.module.get_submodule(spec.name.rpartition(".")[0])
-    if layer_kind(owner) == "conv" and kfac_tap(owner) is None:
-        raise NotImplementedError(
-            f"KFAC for the {type(owner).__name__} leaf {spec.path} (kron_unsupported="
-            f"{unsupported!r}): the JAX package factors it, the port's conv taps cover "
-            "2-D convs with one group and zero padding; ROADMAP.md §1 item 5 (the conv half "
-            "of tap breadth) is still to port.")
 
 
 def exact_leaf_accumulate(model, x, w, cot, specs, diagonal: bool = False) -> dict:

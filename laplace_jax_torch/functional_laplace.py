@@ -107,8 +107,7 @@ class FunctionalLaplace(BaseLaplace):
         (reference `baselaplace.py:2420-2534`)."""
         self._check_loader(train_loader)
         X_probe, _ = self._unpack_batch(next(iter(train_loader)))
-        with torch.no_grad():
-            out = self.model.apply(batch_slice(self._tensor(X_probe), slice(0, 1)))
+        out = self.model.output_probe(self._tensor(X_probe))
         self.n_outputs = out.shape[-1]
         if (self.likelihood == Likelihood.REGRESSION and self.n_outputs > 1
                 and self.independent_outputs):

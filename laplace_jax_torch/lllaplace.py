@@ -15,11 +15,11 @@ Jacobians and the fast diagonal predictive; any other head takes the
 per-sample Jacobians over its leaves and the sampled forward of the whole
 network. `backend` and `backend_kwargs` are those of `BaseLaplace`; the
 head's path, kind and `feature_reduction` join the backend's arguments
-(the JAX package's `lllaplace.py:110-115`). KFAC covers a Dense, a 2-D
-conv, a DenseGeneral, an Einsum and an Embed head (the port's taps).
-`KronLLLaplace` on a head the JAX package factors and the port's taps do
-not (a 1-D conv) raises `NotImplementedError`; on a norm head, which KFAC
-cannot factor, it raises `NoKFACHead`, a `ValueError` as the JAX package's.
+(the JAX package's `lllaplace.py:110-115`). KFAC covers a Dense, a conv
+(1-, 2- or 3-d, grouped, circular or masked), a DenseGeneral, an Einsum
+and an Embed head (the port's taps). `KronLLLaplace` on a norm head, which
+KFAC cannot factor, raises `NoKFACHead`, a `ValueError` as the JAX
+package's.
 """
 
 from __future__ import annotations
@@ -28,7 +28,7 @@ import torch
 
 from laplace_jax_torch.baselaplace import DiagLaplace, FullLaplace, KronLaplace, ParametricLaplace
 from laplace_jax_torch.enums import FeatureReduction
-from laplace_jax_torch.nnmodel import NNModel, batch_slice, flax_module_name, kfac_tap
+from laplace_jax_torch.nnmodel import NNModel, batch_slice, flax_module_name
 from laplace_jax_torch.utils.flatten import layer_kind
 
 __all__ = ["LLLaplace", "FullLLLaplace", "KronLLLaplace", "DiagLLLaplace", "NoKFACHead"]
@@ -37,8 +37,7 @@ __all__ = ["LLLaplace", "FullLLLaplace", "KronLLLaplace", "DiagLLLaplace", "NoKF
 class NoKFACHead(NotImplementedError, ValueError):
     """KronLLLaplace on a head KFAC cannot factor (a norm layer): a
     `ValueError`, the class the JAX package raises there, and a
-    `NotImplementedError`, the class the port raises for heads its taps do
-    not cover, so callers that catch either see it."""
+    `NotImplementedError`, so callers that catch either see it."""
 
 
 class LLLaplace(ParametricLaplace):
@@ -196,9 +195,10 @@ class KronLLLaplace(LLLaplace, KronLaplace):
     _key = ("last_layer", "kron")
 
     def _set_last_layer(self, path: tuple) -> None:
-        """As `LLLaplace._set_last_layer`, for a head the port's KFAC taps
-        cover (`nnmodel.kfac_tap`): a Dense, a 2-D conv, a DenseGeneral, an
-        Einsum or an Embed."""
+        """As `LLLaplace._set_last_layer`, for a head the KFAC taps cover: a
+        Dense, a conv (1-, 2- or 3-d, grouped, circular or masked), a
+        DenseGeneral, an Einsum or an Embed. A norm head raises
+        `NoKFACHead`."""
         head = self._full_model.module.get_submodule(".".join(path))
         if layer_kind(head) == "norm":
             raise NoKFACHead(
@@ -206,12 +206,6 @@ class KronLLLaplace(LLLaplace, KronLaplace):
                 "is intercepted for KFAC there, and the JAX package refuses this head too, "
                 "under every kron_unsupported policy (ROADMAP.md §1 item 3). Use "
                 "FullLLLaplace or DiagLLLaplace.")
-        if kfac_tap(head) is None:
-            raise NotImplementedError(
-                f"KronLLLaplace on a {type(head).__name__} head {path}: the port's KFAC taps "
-                "cover Dense, 2-D conv, DenseGeneral, Einsum and Embed heads; KFAC for 1-D, "
-                "3-D, grouped and circular convs is still to port (ROADMAP.md §1 item 5, its "
-                "conv half). Use FullLLLaplace or DiagLLLaplace.")
         super()._set_last_layer(path)
 
     def functional_variance_fast(self, x):

@@ -2,12 +2,14 @@
 reward-model transformer (`Embed`, `DenseGeneral`,
 `MultiHeadDotProductAttention`, `LayerNorm`), the norms of
 `laplace_jax/models/wideresnet.py` (`BatchNorm` in inference mode,
-`GroupNorm`), and `Einsum` and `RMSNorm`.
+`GroupNorm`), and `Einsum`, `RMSNorm`, `InstanceNorm` and `Conv` (1-, 2-
+or 3-d, grouped, circular, input-dilated, masked).
 
 Every parameter is kept in flax layout and under flax's leaf name
 (`embedding`, `kernel` as the torch `weight`, `bias`, `scale`), so the
 flat vector (`utils/flatten.py`) and `models.resnet.state_dict_from_flax`
-take them as they are. None of them is an `nn.Linear`: the JAX package
+take them as they are; the `Conv` kernel alone is kept in torch's conv
+layout `(out, in / groups, *k)`, as `nn.Conv2d` keeps it. None of them is an `nn.Linear`: the JAX package
 taps a `DenseGeneral` or an `Einsum` as the kind `dense_general`, not as a
 Dense, and so do the port's taps and discovery (`tap_kind`).
 """
@@ -18,12 +20,20 @@ import math
 from typing import Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from laplace_jax_torch.models.resnet import _trunc_normal
+from laplace_jax_torch.ops.im2col import as_tuple, dilate_input, pad_input
+from laplace_jax_torch.utils.flatten import CONV, from_flax_layout
 
 __all__ = ["Embed", "DenseGeneral", "Einsum", "MultiHeadDotProductAttention", "LayerNorm",
-           "RMSNorm", "BatchNorm", "GroupNorm"]
+           "RMSNorm", "BatchNorm", "GroupNorm", "InstanceNorm", "Conv"]
+
+
+def _trunc_normal(t, std, generator):
+    # flax's truncated normal: unit-variance after truncation at +-2 sigma
+    s = std / 0.87962566103423978
+    nn.init.trunc_normal_(t, 0.0, s, -2 * s, 2 * s, generator=generator)
 
 
 def _shape(n) -> tuple:
@@ -266,3 +276,86 @@ class GroupNorm(_Norm):
         shape = x.movedim(self.axis, -1).shape
         mean, var = (t.expand_as(xg).reshape(shape).movedim(-1, self.axis) for t in (mean, var))
         return self._affine(x, mean, var)
+
+
+class InstanceNorm(_Norm):
+    """flax `nn.InstanceNorm()`: statistics per sample and feature, over
+    every axis but the batch and the feature `axis`, with flax's fast
+    variance; epsilon 1e-6, leaves `scale` and `bias`."""
+
+    def __init__(self, features: int, epsilon: float = 1e-6, axis: int = -1):
+        super().__init__(features, epsilon, axis)
+
+    def forward(self, x):
+        red = tuple(i for i in range(1, x.ndim) if i != self.axis % x.ndim)
+        mean = x.mean(red, keepdim=True)
+        var = ((x * x).mean(red, keepdim=True) - mean * mean).clamp(min=0.0)
+        return self._affine(x, mean, var)
+
+
+_CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+
+
+class Conv(nn.Module):
+    """flax `nn.Conv(features, kernel_size, strides, padding,
+    input_dilation, kernel_dilation, feature_group_count, use_bias, mask)`
+    on `(B, C, *S)` tensors with 1, 2 or 3 spatial dims, the layout of
+    `nn.Conv1d/2d/3d` (`models.resnet.Conv` is its ResNet case).
+
+    `padding` is 'SAME', 'VALID', 'CIRCULAR' (flax's wrap pad by the
+    dilated kernel extent, then VALID) or explicit `(lo, hi)` pairs (an int
+    pads every side alike); string padding with input dilation raises
+    `ValueError`, as flax does. The kernel `weight` is `(out, in / groups,
+    *k)` (flax's `(*k, in / groups, out)` in the flat vector), lecun-normal
+    on its fan in; the bias is zero. `mask`, in flax's kernel layout, is a
+    buffer (never a leaf): the forward convolves with `weight * mask`,
+    as flax does."""
+
+    tap_kind = "conv"
+
+    def __init__(self, in_features: int, features: int, kernel_size, strides=1,
+                 padding="SAME", input_dilation=1, kernel_dilation=1,
+                 feature_group_count: int = 1, use_bias: bool = True, mask=None,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.kernel_size = _shape(kernel_size)
+        n = len(self.kernel_size)
+        if n not in _CONV:
+            raise ValueError(f"Conv twin takes 1, 2 or 3 spatial dims, not {n}.")
+        if in_features % feature_group_count or features % feature_group_count:
+            raise ValueError(f"{in_features} -> {features} features do not split into "
+                             f"{feature_group_count} groups.")
+        self.strides = as_tuple(strides, n)
+        self.padding = padding.upper() if isinstance(padding, str) else padding
+        self.input_dilation = as_tuple(input_dilation, n)
+        self.kernel_dilation = as_tuple(kernel_dilation, n)
+        self.feature_group_count = feature_group_count
+        if isinstance(self.padding, str) and any(d != 1 for d in self.input_dilation):
+            raise ValueError("String padding is not implemented for a conv with "
+                             "input_dilation (flax and lax reject it); give (lo, hi) pairs.")
+        shape = (features, in_features // feature_group_count) + self.kernel_size
+        self.weight = nn.Parameter(torch.empty(shape))
+        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
+        if mask is not None:
+            mask = from_flax_layout(torch.as_tensor(mask, dtype=torch.get_default_dtype()), CONV)
+            if tuple(mask.shape) != shape:
+                raise ValueError(f"mask of shape {tuple(mask.shape)} for a kernel {shape}.")
+            mask = mask.contiguous()
+        self.register_buffer("mask", mask, persistent=False)
+        self.reset_parameters(generator)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator | None = None):
+        """flax's lecun-normal kernel on its fan in."""
+        _trunc_normal(self.weight, math.sqrt(1.0 / self.weight[0].numel()), generator)
+
+    def kernel(self) -> torch.Tensor:
+        """The kernel the forward convolves with: `weight * mask`."""
+        return self.weight if self.mask is None else self.weight * self.mask
+
+    def forward(self, x):
+        x = pad_input(dilate_input(x, self.input_dilation), self.kernel_size, self.strides,
+                      self.padding, self.kernel_dilation)
+        return _CONV[len(self.kernel_size)](x, self.kernel(), self.bias, stride=self.strides,
+                                            dilation=self.kernel_dilation,
+                                            groups=self.feature_group_count)

@@ -25,33 +25,26 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from laplace_jax_torch.ops.im2col import pad_input
+from laplace_jax_torch.models.flax_layers import Conv as FlaxConv, _trunc_normal
 from laplace_jax_torch.utils.flatten import from_flax_layout, weight_layout
 
 __all__ = ["Conv", "ResidualBlock", "ResNet", "ResNet18", "init_conv", "state_dict_from_flax"]
 
 
-class Conv(nn.Module):
+class Conv(FlaxConv):
     """flax `nn.Conv(features, (k, k), strides, padding='SAME', use_bias=...)`
-    on NCHW tensors (no bias by default, as the ResNet's convs). A bias is
-    the flax leaf `bias`, zero at initialization, and its own KFAC group
-    `(B,)`."""
-
-    tap_kind = "conv"  # weight (out, in, kh, kw), as nn.Conv2d
+    on NCHW tensors (no bias by default, as the ResNet's convs): the flax
+    `Conv` twin with one group and no dilation, whose kernel `init_conv`
+    draws with `init_scale`. A bias is the flax leaf `bias`, zero at
+    initialization, and its own KFAC group `(B,)`."""
 
     def __init__(self, c_in: int, c_out: int, kernel_size: int, strides: int = 1,
                  init_scale: float = 1.0, use_bias: bool = False):
-        super().__init__()
-        self.kernel_size = (kernel_size, kernel_size)
-        self.strides = (strides, strides)
-        self.padding = "SAME"
         self.init_scale = init_scale  # variance_scaling(scale, fan_in, truncated)
-        self.weight = nn.Parameter(torch.empty(c_out, c_in, kernel_size, kernel_size))
-        self.bias = nn.Parameter(torch.zeros(c_out)) if use_bias else None
+        super().__init__(c_in, c_out, (kernel_size, kernel_size), strides, use_bias=use_bias)
 
-    def forward(self, x):
-        x = pad_input(x, self.kernel_size, self.strides, self.padding)
-        return F.conv2d(x, self.weight, self.bias, stride=self.strides)
+    def reset_parameters(self, generator: torch.Generator | None = None):
+        """Left to `init_conv`, which the networks call with their generator."""
 
 
 class ResidualBlock(nn.Module):
@@ -119,12 +112,6 @@ def init_conv(m: Conv, generator: torch.Generator | None = None) -> None:
         _trunc_normal(m.weight, math.sqrt(m.init_scale / m.weight[0].numel()), generator)
         if m.bias is not None:
             m.bias.zero_()
-
-
-def _trunc_normal(t, std, generator):
-    # flax's truncated normal: unit-variance after truncation at +-2 sigma
-    s = std / 0.87962566103423978
-    nn.init.trunc_normal_(t, 0.0, s, -2 * s, 2 * s, generator=generator)
 
 
 def state_dict_from_flax(params: Mapping, module: nn.Module) -> dict:

@@ -3,9 +3,11 @@ Dense, Conv, DenseGeneral, Einsum, Embed and norm taps, a trainable subset
 of leaves and the last-layer helpers).
 
 `apply_with_taps` plants a forward hook on every layer the KFAC taps take
-(`kfac_tap`): a Dense (`nn.Linear`), the port's own `Conv`, every
-`nn.Conv2d` with `groups == 1` and zero padding (grouped and circular convs
-are not tapped yet), an `Embed` (the tap keeps the ids and
+(`kfac_tap`): a Dense (`nn.Linear`), a conv (the flax `Conv` twin of
+`models/flax_layers.py` with its groups, padding, input dilation and mask,
+`models.resnet.Conv` among its cases, and every `nn.Conv1d`, `nn.Conv2d` and
+`nn.Conv3d` with any `groups` and zero or circular padding; the spec keeps
+each one's own pads), an `Embed` (the tap keeps the ids and
 `num_embeddings`), and a `DenseGeneral` or `Einsum` twin, whose tap
 (`general_linear_tap`, the JAX package's `_general_linear_tap`,
 `laplace_jax/nnmodel.py:475-620`) is one of three: `dense_general`, with
@@ -38,13 +40,14 @@ from dataclasses import dataclass
 from typing import Mapping, Optional
 
 import math
+import re
 import string
 
 import torch
 from torch import nn
 
 from laplace_jax_torch.enums import FeatureReduction
-from laplace_jax_torch.models.resnet import Conv
+from laplace_jax_torch.models.flax_layers import Conv
 from laplace_jax_torch.utils.flatten import (
     layer_kind,
     leaf_specs,
@@ -63,7 +66,8 @@ class LayerTap:
     kind: str
     inputs: torch.Tensor  # layer input (NCHW for convs, the ids for an embedding)
     offset: Optional[torch.Tensor]  # zero added to the output, requiring grad (None: unfactored)
-    # conv: kernel_size, strides, padding, dilation; embed: num_embeddings;
+    # conv: kernel_size, strides, padding, dilation, input_dilation, wrap,
+    # groups, mask (torch layout, or None); embed: num_embeddings;
     # dense_general: n_feat, g_perm, g_perm_bias, kernel_layout
     spec: Optional[dict] = None
     outputs: Optional[torch.Tensor] = None  # norm: the output (detached)
@@ -94,6 +98,18 @@ def unpack_batch(data, dict_key_y: str):
     return X, y
 
 
+def shape_error(exc: Exception) -> bool:
+    """Whether an exception of a one-sample forward is a shape error, as a
+    parameter shape-coupled to the batch (a `DenseGeneral` with
+    `batch_dims`) raises it: a `ValueError` or `TypeError`, or torch's
+    `RuntimeError` for sizes or shapes that do not match."""
+    if isinstance(exc, (ValueError, TypeError)):
+        return True
+    if isinstance(exc, torch.OutOfMemoryError) or not isinstance(exc, RuntimeError):
+        return False
+    return re.search(r"size|shape|dimension|broadcast", str(exc)) is not None
+
+
 def _module_path(name: str) -> tuple:
     return tuple(name.split(".")) if name else ()
 
@@ -105,23 +121,33 @@ def flax_module_name(name: str | None) -> str | None:
 
 
 def conv_spec(mod: nn.Module) -> Optional[dict]:
-    """The patch spec (`ops/im2col.py` arguments) of a conv the KFAC taps
-    take, or None. `nn.Conv2d` padding becomes (lo, hi) pairs: an int or a
-    tuple pads both sides alike; torch's `'same'` (stride 1 only) pads
-    `d (k - 1)` in all, the odd one at the end, as flax's `'SAME'` does."""
-    if isinstance(mod, Conv):
-        return dict(kernel_size=mod.kernel_size, strides=mod.strides, padding=mod.padding)
-    if not isinstance(mod, nn.Conv2d) or mod.groups != 1 or mod.padding_mode != "zeros":
+    """The patch spec (`ops/im2col.py` arguments, the groups and the mask)
+    of a conv the KFAC taps take, or None (an `nn.ConvNd` padding by
+    reflection or replication, which no flax conv does). An `nn.ConvNd`'s
+    padding becomes (lo, hi) pairs: an int or a tuple pads both sides
+    alike; torch's `'same'` pads `d (k - 1)` in all, the odd one at the end,
+    as flax's `'SAME'` does; `padding_mode='circular'` wraps those pads
+    (`wrap`), where flax's 'CIRCULAR' wraps `((e - 1) // 2, e // 2)`."""
+    torch_conv = isinstance(mod, (nn.Conv1d, nn.Conv2d, nn.Conv3d))
+    if not (isinstance(mod, Conv) or torch_conv) or (
+            torch_conv and mod.padding_mode not in ("zeros", "circular")):
         return None
+    spec = dict(kernel_size=tuple(mod.kernel_size), wrap=False)
+    if isinstance(mod, Conv):
+        return dict(spec, strides=mod.strides, padding=mod.padding,
+                    dilation=mod.kernel_dilation, input_dilation=mod.input_dilation,
+                    groups=mod.feature_group_count, mask=mod.mask)
+    n = len(mod.kernel_size)
     if mod.padding == "valid":
-        pads = [(0, 0)] * 2
+        pads = [(0, 0)] * n
     elif mod.padding == "same":
         totals = [d * (k - 1) for k, d in zip(mod.kernel_size, mod.dilation)]
         pads = [(t // 2, t - t // 2) for t in totals]
     else:
         pads = [(p, p) for p in mod.padding]
-    return dict(kernel_size=mod.kernel_size, strides=mod.stride, padding=pads,
-                dilation=mod.dilation)
+    return dict(spec, strides=tuple(mod.stride), padding=pads, dilation=tuple(mod.dilation),
+                input_dilation=None, wrap=mod.padding_mode == "circular", groups=mod.groups,
+                mask=None)
 
 
 def kfac_tap(mod: nn.Module) -> Optional[tuple]:
@@ -250,6 +276,19 @@ class NNModel:
 
     def apply(self, x):
         return self.module(x)
+
+    def output_probe(self, x) -> torch.Tensor:
+        """The outputs of a forward of `x[:1]`, as the fits read the output
+        size from; of the whole `x` when one input alone fails with a shape
+        error (a model shape-coupled to the batch, whose Jacobians take the
+        whole-batch fallback)."""
+        with torch.no_grad():
+            try:
+                return self.apply(batch_slice(x, slice(0, 1)))
+            except (RuntimeError, TypeError, ValueError) as exc:
+                if not shape_error(exc):
+                    raise
+                return self.apply(x)
 
     def apply_vec(self, theta: torch.Tensor, x):
         """The forward with the trainable leaves taken from the flat vector

@@ -15,7 +15,8 @@ A leaf's layout comes from the kind of the module that owns it
 (`layer_kind`, the one classification of layers that the flattening, the
 KFAC taps and last-layer discovery all read): a Dense (`nn.Linear`) weight
 `(out, in)` is transposed, a conv weight `(out, in, *k)` becomes
-`(*k, in, out)`, and every other leaf is already in flax layout (the twins
+`(*k, in, out)` (for every rank; `in` is `in / groups` for a grouped conv,
+as in flax), and every other leaf is already in flax layout (the twins
 of `models/flax_layers.py`: an embedding, attention kernels and biases,
 norm scales).
 """

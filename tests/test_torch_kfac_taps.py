@@ -2,8 +2,9 @@
 precision switches, on the CPU in float64.
 
 - `torch.nn.Conv2d` layers (bias; stride 1 and 2; explicit, `'valid'` and
-  `'same'` padding; kernel dilation) get the JAX package's KFAC factors on
-  a flax twin with explicit padding pairs, and no zero-curvature warning.
+  `'same'` padding; kernel dilation; two groups; circular padding) get the
+  JAX package's KFAC factors on a flax twin with explicit padding pairs (or
+  CIRCULAR), and no zero-curvature warning.
 - A Dense layer on a sequence `(B, T, in)` gets "expand" KFAC factors,
   A = 1/(N T) sum a a^T.
 - The port's fits, decompose, marglik and predictives leave
@@ -166,16 +167,44 @@ def test_conv2d_gets_no_zero_curvature_warning(conv_pair):
     assert not [m for m in conv_pair[-1] if "zero curvature" in m]
 
 
-def test_grouped_conv2d_keeps_the_zero_curvature_warning():
-    """Grouped and circular convs are not tapped yet: their leaves warn and
-    get zero factors, as before."""
-    for conv in (nn.Conv2d(4, 4, 3, padding=1, groups=2),
-                 nn.Conv2d(4, 4, 3, padding=1, padding_mode="circular")):
-        net = nn.Sequential(conv, nn.Flatten(), nn.Linear(100, CLASSES)).double()
-        X = np.random.default_rng(4).standard_normal((N, 4, 5, 5))
-        la = KronLaplace(net, "classification", device="cpu")
-        with pytest.warns(UserWarning, match="zero curvature"):
-            la.fit(ArrayLoader(X, np.arange(N) % CLASSES, batch_size=BATCH))
+class JaxGroupedOrCircular(fnn.Module):
+    """A 3x3 conv, 4 -> 4 channels: two groups with explicit (1, 1) pads, or
+    one group CIRCULAR (a wrap of 1 on each side); flatten; Dense."""
+
+    circular: bool
+
+    @fnn.compact
+    def __call__(self, x):
+        pad, groups = ("CIRCULAR", 1) if self.circular else (((1, 1), (1, 1)), 2)
+        x = fnn.Conv(4, (3, 3), padding=pad, feature_group_count=groups,
+                     param_dtype=jnp.float64)(x)
+        return fnn.Dense(CLASSES, param_dtype=jnp.float64)(x.reshape(x.shape[0], -1))
+
+
+class TorchGroupedOrCircular(nn.Module):
+    def __init__(self, circular):
+        super().__init__()
+        self.Conv_0 = nn.Conv2d(4, 4, 3, padding=1, groups=1 if circular else 2,
+                                padding_mode="circular" if circular else "zeros")
+        self.Dense_0 = nn.Linear(100, CLASSES)
+
+    def forward(self, x):
+        x = self.Conv_0(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        return self.Dense_0(x.reshape(x.shape[0], -1))
+
+
+@pytest.mark.parametrize("circular", [False, True], ids=["grouped", "circular"])
+def test_grouped_and_circular_conv2d_are_tapped(circular):
+    """A grouped and a circular `nn.Conv2d` are tapped: no "zero curvature"
+    warning, and the JAX package's factors on the flax twin."""
+    rng = np.random.default_rng(4)
+    X, y = rng.standard_normal((N, 5, 5, 4)), rng.integers(0, CLASSES, N)
+    jla, tla, caught = _fit_pair(JaxGroupedOrCircular(circular),
+                                 lambda: TorchGroupedOrCircular(circular), X, y)
+    assert not [m for m in caught if "zero curvature" in m]
+    _assert_factors_match(jla, tla)
+    assert [tuple(F[0].shape) for F in tla.H_facs.kfacs][:2] == [
+        (4, 4), (36 if circular else 18, 36 if circular else 18)]
 
 
 def test_dense_on_a_sequence_gets_expand_kfac_factors(seq_pair):

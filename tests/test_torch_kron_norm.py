@@ -2,7 +2,8 @@
 (`kron_unsupported` = skip / block / raise) in the port, against the JAX
 package in float64 on the CPU: the norm twins (`BatchNorm` with frozen
 running statistics, `GroupNorm`, `LayerNorm`) on `tests/test_kron_norm.py`'s
-BNCNN and on WideResNet-16 at widen 1 on 8x8 inputs, and a bare parameter
+BNCNN and on WideResNet-16 at widen 1 on 8x8 inputs, the `InstanceNorm`
+twin on the BNCNN, and a bare parameter
 under no layer (`tests/test_kron_generic_block.py`'s generic exact block;
 its interleaved Einsum is in `tests/test_torch_dense_general_taps.py`), and
 a DenseGeneral, which gets Kron factors under every policy.
@@ -49,6 +50,7 @@ from .torch_twins import (
 torch.set_num_threads(1)
 
 NORMS = ["batch", "group", "layer"]
+BNCNN_NORMS = NORMS + ["instance"]  # the InstanceNorm twin in the BNCNN alone
 POLICIES = ["skip", "block", "raise"]
 
 
@@ -98,6 +100,38 @@ def test_norm_twins_forward_as_flax(make, shape, norm):
     close(NNModel(tm).mean_vector, np.asarray(ravel_pytree(jm.train_params)[0]), 0.0)
 
 
+def test_instance_norm_twin_forward_as_flax():
+    """The InstanceNorm twin (statistics per sample and channel, over the
+    spatial axes) inside the BNCNN gives flax's `InstanceNorm` outputs
+    within 1e-12, and the flat vector is flax's parameters."""
+    from jax.flatten_util import ravel_pytree
+
+    jm, tm = bncnn_pair("instance")
+    X = np.random.default_rng(7).standard_normal((3, 6, 6, 2))
+    with torch.no_grad():
+        got = tm(torch.as_tensor(X)).numpy()
+    np.testing.assert_allclose(got, np.asarray(jax.jit(jm.apply)(jm.train_params,
+                                                                 jnp.asarray(X))),
+                               rtol=0, atol=1e-12)
+    close(NNModel(tm).mean_vector, np.asarray(ravel_pytree(jm.train_params)[0]), 0.0)
+
+
+@pytest.mark.parametrize("policy", POLICIES)
+def test_instance_norm_policies_match_jax(policy):
+    """The BNCNN with an InstanceNorm under each policy: the same factors
+    and warning (skip), the same exact blocks and no warning (block),
+    `ValueError` (raise), as the JAX package's."""
+    jm, tm = bncnn_pair("instance")
+    X, y = classification(6, (6, 6, 2), 3, 1)
+    jout, tout = _kron_both(jm, tm, X, y, kron_unsupported=policy)
+    if policy == "raise":
+        assert jout is ValueError and tout is ValueError
+        return
+    (kj, wj), (kt, wt) = jout, tout
+    kron_close(kt, kj)
+    assert wt == wj and len(wt) == (policy == "skip")
+
+
 def test_wideresnet_16_4_has_flax_leaves():
     """At full size (widen 4, 10 classes, BatchNorm) the twin's leaves are
     the flax model's, 2,750,682 weights (`jax.eval_shape`, no init)."""
@@ -133,7 +167,7 @@ def test_wrn_policies_match_jax(norm, policy):
     assert all(bool((F[0] == 0).all()) == (policy == "skip") for F in norm_groups)
 
 
-@pytest.mark.parametrize("norm", NORMS)
+@pytest.mark.parametrize("norm", BNCNN_NORMS)
 def test_kron_skip_warns_and_fits(norm):
     """`tests/test_kron_norm.py:79`: the norm groups' Kron diagonal is
     exactly 0, the posterior there is the prior, everything stays finite."""
@@ -151,7 +185,7 @@ def test_kron_skip_warns_and_fits(norm):
     assert bool(torch.isfinite(la.sample(5, generator=torch.Generator().manual_seed(0))).all())
 
 
-@pytest.mark.parametrize("norm", NORMS)
+@pytest.mark.parametrize("norm", BNCNN_NORMS)
 def test_kron_block_matches_full_ggn_blocks(norm):
     """`tests/test_kron_norm.py:103`: the 'block' groups of the norm leaves
     equal those leaves' blocks of the exact full GGN, and the JAX package's

@@ -5,12 +5,12 @@ in the port against `laplace_jax` in float64.
   a 1-D conv head; nothing tapped; a nested head; a Dense followed by
   post-processing): the same head as the JAX package's, or the same error.
 - FullLL and DiagLL on a 1-D conv head, a 2-D conv head and a LayerNorm
-  head, and KronLL on the 2-D conv head: H (or the Kron factors), the log
+  head, and KronLL on the two conv heads: H (or the Kron factors), the log
   marginal likelihood and the probit predictive against the JAX package's,
   and the NN predictive's sampled forward on the same posterior samples.
-- KronLL on a head the port's KFAC taps do not cover (LayerNorm, 1-D
-  conv) raises `NotImplementedError`; on a DenseGeneral head it fits, with
-  the JAX package's Kron factors, marglik and probit.
+- KronLL on a LayerNorm head, which KFAC cannot factor, raises
+  `NoKFACHead` (a `NotImplementedError`); on a DenseGeneral head it fits,
+  with the JAX package's Kron factors, marglik and probit.
 - FunctionalLL on the same three heads, found or named, takes the
   per-sample Jacobians over the head's leaves. The JAX package's
   FunctionalLL takes φ⊗I on every head, so it is not the reference here:
@@ -187,7 +187,7 @@ def _fit(head, flavor):
 
 @pytest.mark.parametrize("flavor", ["full", "diag", "kron"])
 def test_non_dense_head_against_jax(head, flavor):
-    if flavor == "kron" and head["name"] != "conv2d":
+    if flavor == "kron" and head["name"] == "norm":
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             KronLLLaplace(head["tm"], "classification", device="cpu").fit(
                 ArrayLoader(head["X"], head["y"], batch_size=6))

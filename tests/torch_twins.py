@@ -13,6 +13,7 @@ derives (`fold_in(key, s)` per sample s, as its `kfac.py:236` and
 """
 
 import functools
+import warnings
 
 import flax.linen as fnn
 import jax
@@ -25,7 +26,7 @@ from torch import nn
 from laplace_jax.models import ResNet18 as FlaxResNet18
 from laplace_jax.models import WideResNet16x4 as FlaxWRN
 from laplace_jax.nnmodel import NNModel as JaxNNModel
-from laplace_jax_torch.models.flax_layers import BatchNorm, GroupNorm, LayerNorm
+from laplace_jax_torch.models.flax_layers import BatchNorm, GroupNorm, InstanceNorm, LayerNorm
 from laplace_jax_torch.models.resnet import Conv, ResNet18, state_dict_from_flax
 from laplace_jax_torch.models.wideresnet import WideResNet16x4
 
@@ -70,8 +71,9 @@ class TwoConv(nn.Module):
 
 
 class FlaxBNCNN(fnn.Module):
-    """`tests/test_kron_norm.py`'s BNCNN: a stride-2 conv, a norm, a Dense,
-    a LayerNorm when `norm == "layer"`, the head."""
+    """`tests/test_kron_norm.py`'s BNCNN: a stride-2 conv, a norm (batch,
+    group, layer or instance), a Dense, a LayerNorm when `norm == "layer"`,
+    the head."""
 
     norm: str = "batch"
 
@@ -82,6 +84,8 @@ class FlaxBNCNN(fnn.Module):
             x = fnn.BatchNorm(use_running_average=True)(x)
         elif self.norm == "group":
             x = fnn.GroupNorm(num_groups=2)(x)
+        elif self.norm == "instance":
+            x = fnn.InstanceNorm()(x)
         else:
             x = fnn.LayerNorm()(x)
         x = fnn.Dense(6)(jax.nn.relu(x).reshape(x.shape[0], -1))
@@ -99,13 +103,16 @@ class BNCNN(nn.Module):
             self.BatchNorm_0 = BatchNorm(4, axis=1)
         elif norm == "group":
             self.GroupNorm_0 = GroupNorm(4, num_groups=2, axis=1)
+        elif norm == "instance":
+            self.InstanceNorm_0 = InstanceNorm(4, axis=1)
         else:
             self.LayerNorm_0 = LayerNorm(4, axis=1)
             self.LayerNorm_1 = LayerNorm(6)
         self.Dense_0, self.Dense_1 = nn.Linear(36, 6), nn.Linear(6, 3)
 
     def forward(self, x):
-        name = {"batch": "BatchNorm_0", "group": "GroupNorm_0", "layer": "LayerNorm_0"}
+        name = {"batch": "BatchNorm_0", "group": "GroupNorm_0", "instance": "InstanceNorm_0",
+                "layer": "LayerNorm_0"}
         x = getattr(self, name[self.norm])(self.Conv_0(x.permute(0, 3, 1, 2)))
         x = self.Dense_0(F.relu(x).permute(0, 2, 3, 1).reshape(x.shape[0], -1))
         if self.norm == "layer":
@@ -241,3 +248,16 @@ def kron_close(kt, kj, rel=1e-9):
         assert len(Ft) == len(Fj)
         for a, b in zip(Ft, Fj):
             close(a, b, rel)
+
+
+def outcome(fn):
+    """(value, "zero curvature" warnings) of fn(), or the exception's class;
+    the warnings with the JAX leaf paths' leading `params/` dropped."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        try:
+            value = fn()
+        except Exception as exc:  # noqa: BLE001 - the class is compared
+            return type(exc)
+    return value, [str(c.message).replace("params/", "") for c in caught
+                   if "zero curvature" in str(c.message)]
