@@ -52,6 +52,24 @@ Phases, each printing one JSON line; any failed check exits non-zero:
              (K, m) at its offset, timed 5 times with CUDA events: the v4
              and v1 rows gain `ms_by_window` and `main_path_ms` (the sum
              over the main path's launches);
+   parallel - data parallelism over `torch.distributed` on the one card:
+             two gloo ranks on cuda:0 (spawned after the build, which they
+             only load; gloo's `all_reduce` and `all_gather` on CUDA tensors
+             checked first), each fitting the main path under
+             `DataParallel(data_mesh())` in the default and the explicit
+             mode (35 v1 and 108 v4 launches a rank, read from its own run;
+             factor diagonals, marglik and the probit on 8 inputs against
+             `main`'s fit; its all-reduces timed alone), then the
+             last layer's `FullLLLaplace` (4 syrk launches a rank) and its
+             `shard_posterior` (H by rows, `Shard(0)`; logdet, 4 samples
+             and the probit against the replicated posterior); an NCCL
+             group of this one process fitting the main path; `main`'s
+             factors decomposed over `[cuda:0, cuda:0]` and under
+             `LAPLACE_TS_STAGE1=pallas` (143 v1 panels, no v4) and `xla`
+             (no kernel), eigenvalues, reconstructions and logdet against
+             `main`'s decompose; the all-weights tap diagonal in bfloat16
+             (finite, probit rows sum to 1 within 2e-2, its error against
+             float32 reported);
 6. last_layer - last-layer Laplace on the same network and data: the
              default `Laplace(net, "classification")` (KronLL, v1 kernel),
              FullLL (the syrk kernel, 4 launches; its GGN against a float64
@@ -192,9 +210,9 @@ its KronLL (rows sum to 1).
 
 Then the kernel summary line (with `main_path_ms`, `route_ms`,
 `stream_bound_ms` and v2's `ms_3x4608` where measured, and
-`launches_by_path`: each kernel's launches on the marglik_training,
-regression, subnet, reward, backends, transformer, conv_variants and
-serialization paths), the
+`launches_by_path`: each kernel's launches on the parallel,
+marglik_training, regression, subnet, reward, backends, transformer,
+conv_variants and serialization paths), the
 `nvidia-smi` line, and last
 `{"ok": true, "device": {...}}`. Without a CUDA device, or outside the
 repository checkout, it exits non-zero and prints no result.
@@ -828,6 +846,313 @@ def main_path(seed, device, keep):
     keep["main_kron"] = (la, lambda: KronLaplace(net, "classification", device=device),
                          X_test[:8])
     return res
+
+
+PARALLEL_RANKS = 2  # gloo ranks on the one card
+# the data-parallel fit against `main`'s single-process fit, float32: the
+# all_reduce sums the ranks' halves of each batch where one process sums
+# the whole batch, so each factor moves by rounding (about 1e-7 of its
+# largest entry), and the decompose, marglik and probit follow it
+PARALLEL_DIAG_TOL = 1e-5  # each factor's diagonal, max |par - one| / max |one|
+PARALLEL_LML_TOL = 1e-5  # marglik, relative
+PARALLEL_PROBIT_TOL = 1e-5  # probit on 8 inputs, absolute
+SHARD_TOL = 1e-6  # shard_posterior against the replicated posterior, relative
+BF16_ROW_TOL = 2e-2  # bfloat16 probit rows sum to 1 (the JAX package's tests/test_dtypes.py)
+# `LAPLACE_TS_STAGE1` on `main`'s factors: "pallas" sends every class n >= 512
+# to v1 (35 panels of its own classes, 108 of v4's), "xla" to the plain stage 1
+OVERRIDE_LAUNCHES = {"pallas": {"latrd_panel": 143, "latrd_panel_v4": 0},
+                     "xla": {"latrd_panel": 0, "latrd_panel_v4": 0}}
+
+
+def kron_diagonals(kron) -> list:
+    """Each factor's diagonal, on the host."""
+    return [H.diagonal().cpu() for F in kron.kfacs for H in F]
+
+
+def max_rel(got: list, ref: list) -> float:
+    """The largest max |got - ref| / max |ref| over paired tensors."""
+    return max(rel_err(g, r) for g, r in zip(got, ref))
+
+
+def parallel_rank(rank, world, work, seed, device):
+    """One rank of the `parallel` phase, spawned by `parallel_phase` on the
+    one card (gloo: NCCL refuses two ranks on one GPU): gloo's collectives
+    on CUDA tensors; the full-width ResNet-18 `KronLaplace` under
+    `DataParallel(data_mesh())` in the default and the explicit mode, its
+    all-reduces timed alone, its launches read from this rank's own run;
+    the last-layer `FullLLLaplace` under it, then its `shard_posterior`
+    (logdet, 4 samples from one generator, probit) beside the replicated
+    posterior. Writes its results to `work/rank<rank>.pt`. `device` is
+    `main`'s, "cuda:0"."""
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    from laplace_jax_torch import FullLLLaplace, KronLaplace
+    from laplace_jax_torch.parallel import DataParallel, data_mesh, sharding
+
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    dist.init_process_group("gloo", init_method=f"file://{work}/rendezvous", world_size=world,
+                            rank=rank, timeout=timedelta(seconds=300))
+    res = {}
+    t = torch.full((3,), float(rank + 1), device=device)
+    dist.all_reduce(t)
+    parts = [torch.empty(2, device=device) for _ in range(world)]
+    dist.all_gather(parts, torch.full((2,), float(rank), device=device))
+    res["gloo_cuda"] = dict(all_reduce=t.tolist(), all_reduce_device=str(t.device),
+                            all_gather=[p.tolist() for p in parts],
+                            all_gather_devices=sorted({str(p.device) for p in parts}))
+    reduce_s, broadcast_s = [0.0], [0.0]
+
+    def timed_collective(fn, acc):
+        def call(tree, group=None):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(tree, group)
+            torch.cuda.synchronize()
+            acc[0] += time.perf_counter() - t0
+            return out
+        return call
+
+    sharding.all_reduce_tree = timed_collective(sharding.all_reduce_tree, reduce_s)
+    sharding.broadcast_tree = timed_collective(sharding.broadcast_tree, broadcast_s)
+    net, loader, X_test = full_width(seed)
+    mesh = data_mesh()
+    for mode, explicit in (("annotated", False), ("explicit", True)):
+        la = KronLaplace(net, "classification", device=device,
+                         parallel=DataParallel(mesh, explicit=explicit))
+        zero_launches()
+        reduce_s[0] = broadcast_s[0] = 0.0
+        r = {}
+        timed(r, "fit_s", lambda: la.fit(loader))
+        r.update(launches=kernel_launches(*MAIN_LAUNCHES, "syrk"), all_reduce_s=reduce_s[0],
+                 broadcast_s=broadcast_s[0], accumulate_s=la.fit_seconds["accumulate"],
+                 decompose_s=la.fit_seconds["decompose"],
+                 log_marglik=float(la.log_marginal_likelihood()),
+                 probit=la(X_test[:8]).cpu(), diagonals=kron_diagonals(la.H_facs))
+        res[mode] = r
+        del la
+    ll = FullLLLaplace(net, "classification", device=device, parallel=DataParallel(mesh))
+    zero_launches()
+    reduce_s[0] = 0.0
+    r = {}
+    timed(r, "fit_s", lambda: ll.fit(loader))
+    r.update(launches=kernel_launches("syrk"), all_reduce_s=reduce_s[0], n_params=ll.n_params)
+    for tag in ("replicated", "sharded"):
+        if tag == "sharded":
+            timed(r, "shard_posterior_s", ll.shard_posterior)
+            r.update(placements=str(ll.H.placements), local_shape=list(ll.H.to_local().shape))
+        gen = torch.Generator(device=device).manual_seed(seed)
+        r[tag] = dict(logdet=float(ll.log_det_posterior_precision),
+                      samples=ll.sample(4, generator=gen).cpu(), probit=ll(X_test[:8]).cpu())
+        # a marglik step, the best of 3 (each gathers a sharded H first)
+        steps = {}
+        for i in range(3):
+            timed(steps, i, ll.log_marginal_likelihood)
+        r[f"log_marglik_step_s_{tag}"] = min(steps.values())
+    res["full_ll"] = r
+    torch.save(res, Path(work) / f"rank{rank}.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def parallel_phase(seed, device, smi, main, keep):
+    """Data parallelism over `torch.distributed` on the one card, against
+    `main`'s fit: 2 gloo ranks (`parallel_rank`); an NCCL group of this one
+    process; `Kron.decompose` over two devices; the `LAPLACE_TS_STAGE1`
+    override; a bfloat16 tap diagonal. Returns the first rank's launches as
+    it read them: its default-mode Kron fit's v1 and v4, its FullLL fit's
+    syrk."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from laplace_jax_torch import DiagLaplace, KronLaplace
+    from laplace_jax_torch.parallel import DataParallel, sharding
+
+    t_start = time.perf_counter()
+    la, _, X8 = keep["main_kron"]
+    res = dict(phase="parallel", model="ResNet18(width=64, num_classes=10)", n_data=512,
+               batch=128, dtype="float32", ranks=PARALLEL_RANKS, nvidia_smi=smi)
+    # `main`'s fit at the prior the ranks fit with (`main` tuned it since)
+    tuned = la.prior_precision
+    la.prior_precision = 1.0
+    one_probit = la(X8).cpu()
+    one_lml = float(la.log_marginal_likelihood())
+    la.prior_precision = tuned
+    one_diag = kron_diagonals(la.H_facs)
+    check(abs(one_lml - main["log_marglik"]) <= PARALLEL_LML_TOL * abs(main["log_marglik"]),
+          f"main's marglik at prior 1 reads {one_lml}, not {main['log_marglik']}")
+
+    # two gloo ranks on cuda:0; every kernel was built before the spawn,
+    # so the ranks only load `build/`
+    work = Path(__file__).resolve().parent / "build" / "parallel"
+    work.mkdir(parents=True, exist_ok=True)
+    for stale in ["rendezvous"] + [f"rank{r}.pt" for r in range(PARALLEL_RANKS)]:
+        (work / stale).unlink(missing_ok=True)
+    timed(res, "spawn_s", lambda: mp.spawn(
+        parallel_rank, args=(PARALLEL_RANKS, str(work), seed, str(device)),
+        nprocs=PARALLEL_RANKS, join=True))
+    ranks = [torch.load(work / f"rank{r}.pt") for r in range(PARALLEL_RANKS)]
+    res["gloo_cuda"] = ranks[0]["gloo_cuda"]
+    for r, out in enumerate(ranks):
+        g = out["gloo_cuda"]
+        check(g["all_reduce"] == [3.0] * 3 and g["all_reduce_device"] == "cuda:0"
+              and g["all_gather"] == [[0.0, 0.0], [1.0, 1.0]]
+              and g["all_gather_devices"] == ["cuda:0"],
+              f"rank {r}: gloo on CUDA tensors gave {g}")
+    for mode in ("annotated", "explicit"):
+        row = {}
+        for r, out in enumerate(ranks):
+            o = out[mode]
+            check(o["launches"] == dict(MAIN_LAUNCHES, syrk=0),
+                  f"{mode} rank {r}: launches {o['launches']}, not {MAIN_LAUNCHES}")
+            diag_err = max_rel(o["diagonals"], one_diag)
+            lml_err = abs(o["log_marglik"] - one_lml) / abs(one_lml)
+            probit_err = float((o["probit"] - one_probit).abs().max())
+            row[f"rank{r}"] = dict({k: o[k] for k in ("fit_s", "accumulate_s", "decompose_s",
+                                                      "all_reduce_s", "broadcast_s", "launches",
+                                                      "log_marglik")},
+                                   diag_rel_err=diag_err, log_marglik_rel_err=lml_err,
+                                   probit_err=probit_err)
+            check(diag_err <= PARALLEL_DIAG_TOL,
+                  f"{mode} rank {r}: factor diagonals off main's by {diag_err:.3e}")
+            check(lml_err <= PARALLEL_LML_TOL, f"{mode} rank {r}: marglik off by {lml_err:.3e}")
+            check(probit_err <= PARALLEL_PROBIT_TOL,
+                  f"{mode} rank {r}: probit off main's by {probit_err:.3e}")
+        # the first rank's eigenpairs are broadcast: every rank holds one posterior
+        row["ranks_bitwise"] = all(
+            torch.equal(ranks[0][mode]["probit"], out[mode]["probit"])
+            and ranks[0][mode]["log_marglik"] == out[mode]["log_marglik"]
+            and all(map(torch.equal, ranks[0][mode]["diagonals"], out[mode]["diagonals"]))
+            for out in ranks)
+        res[mode] = row
+        check(row["ranks_bitwise"], f"{mode}: the ranks' marglik, probit or factors differ")
+    # shard_posterior over the 2 ranks (P = 5130)
+    shard = {}
+    for r, out in enumerate(ranks):
+        o = out["full_ll"]
+        rep, sh = o["replicated"], o["sharded"]
+        errs = dict(logdet=abs(sh["logdet"] - rep["logdet"]) / abs(rep["logdet"]),
+                    samples=rel_err(sh["samples"], rep["samples"]),
+                    probit=float((sh["probit"] - rep["probit"]).abs().max()))
+        shard[f"rank{r}"] = dict(fit_s=o["fit_s"], all_reduce_s=o["all_reduce_s"],
+                                 log_marglik_step_s={t: o[f"log_marglik_step_s_{t}"]
+                                                     for t in ("replicated", "sharded")},
+                                 launches=o["launches"], placements=o["placements"],
+                                 local_shape=o["local_shape"],
+                                 shard_posterior_s=o["shard_posterior_s"], errors=errs,
+                                 bitwise=all(torch.equal(torch.as_tensor(sh[k]),
+                                                         torch.as_tensor(rep[k])) for k in sh))
+        check(o["launches"] == {"syrk": 4}, f"rank {r}: FullLL syrk launches {o['launches']}")
+        check(o["placements"] == "(Shard(dim=0),)" and o["local_shape"] == [2565, 5130],
+              f"rank {r}: H laid out {o['placements']} {o['local_shape']}")
+        check(max(errs.values()) <= SHARD_TOL, f"rank {r}: shard_posterior moved {errs}")
+    res["shard_posterior"] = shard
+
+    # an NCCL group of this one process, the route of a multi-GPU user. Its
+    # fit runs no collective (a group of one is short-cut), so the
+    # collectives the fit would run are driven over it directly
+    dp = DataParallel()
+    world = dist.group.WORLD
+    probit = la(X8)  # one call: the card's probit does not repeat bit for bit
+    coll = dict(
+        all_reduce_tree=all(map(torch.equal, kron_diagonals(
+            sharding.all_reduce_tree(la.H_facs, world)), one_diag)),
+        broadcast_tree=all(map(torch.equal, sharding.broadcast_tree(
+            (la.H.eigenvalues,), world)[0][0], la.H.eigenvalues[0])),
+        all_gather_rows=torch.equal(sharding._all_gather_rows(probit, world, 1), probit))
+    net, loader, _ = full_width(seed)
+    nccl = dict(backend=dist.get_backend(), world_size=dist.get_world_size(), collectives=coll)
+    one = KronLaplace(net, "classification", device=device, parallel=dp)
+    zero_launches()
+    timed(nccl, "fit_s", lambda: one.fit(loader))
+    nccl.update(launches=kernel_launches(*MAIN_LAUNCHES),
+                log_marglik_rel_err=abs(float(one.log_marginal_likelihood()) - one_lml)
+                / abs(one_lml),
+                probit_err=float((one(X8).cpu() - one_probit).abs().max()),
+                diag_rel_err=max_rel(kron_diagonals(one.H_facs), one_diag))
+    dist.destroy_process_group()
+    del one
+    res["nccl_one_rank"] = nccl
+    check(nccl["backend"] == "nccl" and nccl["world_size"] == 1 and all(coll.values()),
+          f"NCCL group: {nccl}")
+    check(nccl["launches"] == MAIN_LAUNCHES, f"NCCL fit launches {nccl['launches']}")
+    check(nccl["diag_rel_err"] <= PARALLEL_DIAG_TOL
+          and nccl["log_marglik_rel_err"] <= PARALLEL_LML_TOL
+          and nccl["probit_err"] <= PARALLEL_PROBIT_TOL, f"NCCL fit off main's: {nccl}")
+
+    # the main path's factors over [cuda:0, cuda:0] against main's decompose
+    def against_main(dec):
+        eig = recon = 0.0
+        for Qs, ls, Qr, lr in zip(dec.eigenvectors, dec.eigenvalues, la.H.eigenvectors,
+                                  la.H.eigenvalues):
+            for Q, lam, Q0, lam0 in zip(Qs, ls, Qr, lr):
+                eig = max(eig, rel_err(lam, lam0))
+                R0 = (Q0 * lam0) @ Q0.T
+                recon = max(recon, rel_err((Q * lam) @ Q.T, R0))
+        return eig, recon
+
+    multi = {}
+    zero_launches()
+    dec = timed(multi, "decompose_s",
+                lambda: la.H_facs.decompose(devices=[device, device]))
+    multi["launches"] = kernel_launches(*MAIN_LAUNCHES)
+    multi["eig_rel_err"], multi["recon_rel_err"] = against_main(dec)
+    del dec
+    res["decompose_two_devices"] = multi
+    check(multi["eig_rel_err"] <= EIG_TOL and multi["recon_rel_err"] <= RECON_TOL,
+          f"decompose over two devices off main's: {multi}")
+
+    # LAPLACE_TS_STAGE1 on the same factors
+    override = {}
+    auto_logdet = float((la.H + 1.0).logdet())
+    for value, expect in OVERRIDE_LAUNCHES.items():
+        o = {}
+        os.environ["LAPLACE_TS_STAGE1"] = value
+        try:
+            zero_launches()
+            dec = timed(o, "decompose_s", la.H_facs.decompose)
+        finally:
+            del os.environ["LAPLACE_TS_STAGE1"]
+        o["launches"] = kernel_launches(*MAIN_LAUNCHES)
+        o["eig_rel_err"], o["recon_rel_err"] = against_main(dec)
+        o["logdet_rel_err"] = abs(float((dec + 1.0).logdet()) - auto_logdet) / abs(auto_logdet)
+        del dec
+        override[value] = o
+        check(o["launches"] == expect, f"LAPLACE_TS_STAGE1={value}: launches {o['launches']}")
+        check(o["eig_rel_err"] <= EIG_TOL and o["logdet_rel_err"] <= EIG_TOL,
+              f"LAPLACE_TS_STAGE1={value}: off the auto route: {o}")
+    res["stage1_override"] = override
+
+    # the all-weights tap diagonal in bfloat16 against float32
+    bf16 = {}
+    net32, loader, X_test = full_width(seed)
+    d32 = DiagLaplace(net32, "classification", device=device)
+    timed(bf16, "float32_fit_s", lambda: d32.fit(loader))
+    netb = copy.deepcopy(net32).to(torch.bfloat16)
+    db = DiagLaplace(netb, "classification", device=device)
+    torch.cuda.reset_peak_memory_stats()
+    timed(bf16, "fit_s", lambda: db.fit(loader))
+    probs = db(X_test[:8])
+    bf16.update(dtype=str(db.H.dtype), peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+                H_finite=bool(torch.isfinite(db.H.float()).all()),
+                diag_rel_err_vs_float32=rel_err(db.H, d32.H),
+                probit_dtype=str(probs.dtype),
+                row_sum_err=float((probs.float().sum(-1) - 1).abs().max()),
+                log_marglik=float(db.log_marginal_likelihood()))
+    res["bfloat16_diag"] = bf16
+    check(bf16["dtype"] == "torch.bfloat16" and bf16["H_finite"], f"bfloat16 H: {bf16}")
+    check(bf16["row_sum_err"] <= BF16_ROW_TOL,
+          f"bfloat16 probit rows sum to 1 within {bf16['row_sum_err']:.3e} only")
+    res["phase_s"] = time.perf_counter() - t_start
+    emit(res)
+    return dict(ranks[0]["annotated"]["launches"], syrk=ranks[0]["full_ll"]["launches"]["syrk"])
 
 
 def window_phase(rows, panels, seed, device, smi, total="main_path_ms"):
@@ -3168,6 +3493,9 @@ def main() -> None:
     keep = {}  # fitted objects for the serialization phase
     main = main_path(args.seed, device, keep)
     window_phase(rows, main["panels"], args.seed, device, smi)
+    # one rank's launches in one data-parallel fit of the main path (v1, v4)
+    # and of its last layer (syrk)
+    parallel_launches = parallel_phase(args.seed, device, smi, main, keep)
     launches = dict(main["launches"])
     ll_launches, full_syrk_ms = last_layer_phase(args.seed, device, keep)
     launches.update(ll_launches)
@@ -3176,7 +3504,8 @@ def main() -> None:
     launches.update(route_launches)
     window_phase(rows, route_panels, args.seed, device, smi, total="route_ms")
     # the marglik-training and regression paths, each read from its own run
-    by_path = {"marglik_training": marglik_training_phase(args.seed, device, smi),
+    by_path = {"parallel": parallel_launches,
+               "marglik_training": marglik_training_phase(args.seed, device, smi),
                "regression": regression_phase(args.seed, device, smi)}
     # the GP path launches no kernel; the subnet path launches syrk once a batch
     functional_phase(args.seed, device, smi, keep)

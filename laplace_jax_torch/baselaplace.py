@@ -47,6 +47,7 @@ import torch
 from laplace_jax_torch.curvature.backend import CurvatureBackend
 from laplace_jax_torch.enums import Likelihood, LinkApprox, PredType, PriorStructure, TuningMethod
 from laplace_jax_torch.nnmodel import NNModel, unpack_batch
+from laplace_jax_torch.parallel.sharding import ensure_group, full_tensor, shard_rows
 from laplace_jax_torch.utils.data import dataset_size
 from laplace_jax_torch.utils.device import full_f32, resolve_device, to_device
 from laplace_jax_torch.utils.flatten import parameters_to_vector
@@ -77,12 +78,17 @@ class BaseLaplace:
     `backend_kwargs` go to `CurvatureBackend` (`stochastic`, `num_samples`,
     `kron_unsupported`, `kron_block_max_params`, `ef_chunk_size`). The
     backend is built at its first use (`self.backend`).
+
+    `parallel` is an optional `laplace_jax_torch.parallel.DataParallel`:
+    each rank fits its rows of every batch and the curvature is summed over
+    the ranks, and the GLM predictive spreads its batch over them (every
+    rank holds the same data and gets the same results).
     """
 
     def __init__(self, model, likelihood, sigma_noise=1.0, prior_precision=1.0,
                  prior_mean=0.0, temperature: float = 1.0, enable_backprop: bool = False,
                  dict_key_x: str = "input_ids", dict_key_y: str = "labels", backend=None,
-                 backend_kwargs: dict | None = None, device=None):
+                 backend_kwargs: dict | None = None, device=None, parallel=None):
         if likelihood not in [lik.value for lik in Likelihood]:
             raise ValueError(f"Invalid likelihood type {likelihood}")
         self.device = resolve_device(device)
@@ -106,6 +112,7 @@ class BaseLaplace:
         self._backend = None
         self._backend_arg = backend
         self._backend_kwargs = dict(backend_kwargs or {})
+        self.parallel = parallel
 
     @property
     def backend(self) -> CurvatureBackend:
@@ -415,18 +422,37 @@ class BaseLaplace:
             return fs
         return torch.softmax(fs, dim=-1)
 
+    def _over_ranks(self, x, fn):
+        """`fn(x)`, spread over the ranks by `parallel.shard_batch` when there
+        is one (the JAX package's `baselaplace.py:992-993`); with
+        `enable_backprop` the whole batch runs on every rank, which keeps the
+        graph."""
+        if self.parallel is None or self.enable_backprop:
+            return fn(x)
+        return self.parallel.shard_batch(x, fn)
+
     def _glm_predictive_distribution(self, x, joint: bool = False,
                                      diagonal_output: bool = False):
         """GLM predictive mean f (batch, outputs) and variance (batch,
         outputs, outputs) or its diagonal; with `joint`, f flattened and
-        the (batch·outputs)² covariance (reference `baselaplace.py:989`)."""
-        Js, f_mu = self.backend._jacobians_dispatch(self._tensor(x),
-                                                    create_graph=self.enable_backprop)
+        the (batch·outputs)² covariance (reference `baselaplace.py:989`).
+        Under `parallel` each rank takes the Jacobians of its rows; the
+        variance is taken on the rows too, the joint covariance, which
+        couples the rows, from the gathered Jacobians."""
+        def jacobians(xs):
+            return self.backend._jacobians_dispatch(xs, create_graph=self.enable_backprop)
+
+        def mean_variance(xs):
+            Js, f_mu = jacobians(xs)
+            return f_mu, self.functional_variance(Js)
+
+        x = self._tensor(x)
         if joint:
+            Js, f_mu = self._over_ranks(x, jacobians)
             f_mu = f_mu.reshape(-1)
             f_var = self.functional_covariance(Js)
         else:
-            f_var = self.functional_variance(Js)
+            f_mu, f_var = self._over_ranks(x, mean_variance)
             if diagonal_output:
                 f_var = torch.diagonal(f_var, dim1=-2, dim2=-1)
         if not self.enable_backprop:
@@ -453,7 +479,9 @@ class ParametricLaplace(BaseLaplace):
         """Accumulate batch curvature over the loader (reference
         `baselaplace.py:709`, `_scan_accumulate` at `:814`); `n_outputs` comes
         from a forward of the first batch's first input. An MC backend
-        draws from `generator`, else from this instance's generator.
+        draws from `generator`, else from this instance's generator. Under
+        `parallel` each batch goes through `parallel.wrap` (each rank's
+        rows, summed over the ranks).
         `fit_seconds["accumulate"]` records the loop's wall time."""
         self._check_loader(train_loader)
         if override:
@@ -469,13 +497,15 @@ class ParametricLaplace(BaseLaplace):
             raise ValueError(f"The model's output has {out.ndim} dims but the target has "
                              f"{y_ndim} dims.")
         N = dataset_size(train_loader)
+        closure = (self._curv_closure if self.parallel is None
+                   else self.parallel.wrap(self._curv_closure))
         self._sync()
         t0 = time.perf_counter()
         H = None
         generator = self._rng(generator)
         for data in train_loader:
             X, y = self._unpack_batch(data)
-            loss_b, H_b = self._curv_closure(self._tensor(X), self._tensor(y), N, generator)
+            loss_b, H_b = closure(self._tensor(X), self._tensor(y), N, generator)
             self.loss = self.loss + loss_b
             H = H_b if H is None else H + H_b
         if H is None:
@@ -697,12 +727,12 @@ class KronLaplace(ParametricLaplace):
                  prior_mean=0.0, temperature: float = 1.0, enable_backprop: bool = False,
                  dict_key_x: str = "input_ids", dict_key_y: str = "labels",
                  damping: bool = False, backend=None, backend_kwargs: dict | None = None,
-                 device=None):
+                 device=None, parallel=None):
         self.damping = damping
         self.H_facs = None
         super().__init__(model, likelihood, sigma_noise, prior_precision, prior_mean,
                          temperature, enable_backprop, dict_key_x, dict_key_y, backend,
-                         backend_kwargs, device=device)
+                         backend_kwargs, device=device, parallel=parallel)
 
     def _curv_closure(self, x, y, N, generator=None):
         return self.backend.kron(x, y, N, generator)
@@ -715,8 +745,12 @@ class KronLaplace(ParametricLaplace):
     @full_f32()
     def fit(self, train_loader, override: bool = True,
             generator: torch.Generator | None = None) -> None:
-        """Fit, then eigendecompose the factors; `fit_seconds["decompose"]`
-        records the decomposition's wall time."""
+        """Fit, then eigendecompose the factors, under `parallel` with its
+        mesh as `devices` (each rank decomposes every factor on its own
+        device) and then the first rank's eigenpairs broadcast, so every
+        rank holds the same posterior even where a solver's bits do not
+        repeat; `fit_seconds["decompose"]` records the decomposition's wall
+        time, broadcast included."""
         if override:
             self.H_facs = None
         if self.H_facs is not None:
@@ -729,7 +763,12 @@ class KronLaplace(ParametricLaplace):
         else:
             self.H_facs = self.H_facs + self._rescale_factors(self.H, n_new / (n_new + n_old))
         t0 = time.perf_counter()
-        self.H = self.H_facs.decompose(damping=self.damping)
+        devices = None if self.parallel is None else self.parallel.mesh
+        H = self.H_facs.decompose(damping=self.damping, devices=devices)
+        if self.parallel is not None:
+            vecs, vals = self.parallel.broadcast((H.eigenvectors, H.eigenvalues))
+            H = KronDecomposed(vecs, vals, damping=self.damping)
+        self.H = H
         self._sync()
         self.fit_seconds["decompose"] = time.perf_counter() - t0
 
@@ -803,7 +842,10 @@ class FullLaplace(ParametricLaplace):
 
     `H` is the summed GGN, built per batch by the `syrk` kernel on the card.
     The posterior scale (a Cholesky-based inverse square root) is cached
-    until the next fit, prior or noise change.
+    until the next fit, prior or noise change. After `shard_posterior`, H
+    is a DTensor laid out by rows, and the posterior precision gathers it
+    (`parallel.sharding.full_tensor`, a collective every rank joins) at
+    every use: the layout saves no peak memory or compute.
     """
 
     _key = ("all", "full")
@@ -814,7 +856,41 @@ class FullLaplace(ParametricLaplace):
     def fit(self, train_loader, override: bool = True,
             generator: torch.Generator | None = None) -> None:
         self._posterior_scale = None
+        if self.H is not None:
+            self.H = full_tensor(self.H)
         super().fit(train_loader, override=override, generator=generator)
+
+    def shard_posterior(self, mesh=None, axis_name: str = "model") -> "FullLaplace":
+        """Lay H out by rows over `mesh`'s `axis_name` as a DTensor
+        (`Shard(0)`, replicated over any other dim; the JAX package's
+        `baselaplace.py:1164-1197`), each rank keeping its rows. With no
+        mesh, a 1-D mesh over the first k ranks, k the largest group size
+        that divides P (a warning when k is below the world size; a rank
+        outside it keeps H whole). A mesh whose axis does not divide P
+        raises. Every rank calls it, and every later use of the posterior
+        precision, which gathers H; results equal the replicated
+        posterior's."""
+        from torch.distributed.device_mesh import DeviceMesh
+
+        self._check_fitted()
+        H = full_tensor(self.H)
+        P = H.shape[0]
+        if mesh is None:
+            world = ensure_group()
+            k = max(d for d in range(1, world + 1) if P % d == 0)
+            if k < world:
+                warnings.warn(f"n_params={P} not divisible by {world} ranks; sharding the "
+                              f"posterior over {k} rank(s).")
+            mesh = DeviceMesh(H.device.type, list(range(k)), mesh_dim_names=(axis_name,))
+        elif P % mesh.size(mesh.mesh_dim_names.index(axis_name)) != 0:
+            raise ValueError(f"n_params={P} must be divisible by the mesh '{axis_name}' axis "
+                             f"size {mesh.size(mesh.mesh_dim_names.index(axis_name))}.")
+        self.H = shard_rows(H, mesh, axis_name)
+        self._posterior_scale = None
+        return self
+
+    def state_dict(self) -> dict:
+        return dict(super().state_dict(), H=full_tensor(self.H))
 
     @property
     def posterior_scale(self) -> torch.Tensor:
@@ -834,7 +910,7 @@ class FullLaplace(ParametricLaplace):
         return self._posterior_precision(self.prior_precision, self.sigma_noise)
 
     def _posterior_precision(self, prior_precision, sigma_noise):
-        return (self._h_factor(sigma_noise) * self.H
+        return (self._h_factor(sigma_noise) * full_tensor(self.H)
                 + torch.diag(self._prior_precision_diag(prior_precision)))
 
     def _log_det_posterior_precision(self, prior_precision, sigma_noise):
@@ -911,11 +987,11 @@ class LowRankLaplace(ParametricLaplace):
                  prior_precision=1.0, prior_mean=0.0, temperature: float = 1.0,
                  enable_backprop: bool = False, dict_key_x: str = "input_ids",
                  dict_key_y: str = "labels", backend_kwargs: dict | None = None,
-                 low_rank: int = 10, device=None):
+                 low_rank: int = 10, device=None, parallel=None):
         self.low_rank = low_rank
         super().__init__(model, likelihood, sigma_noise, prior_precision, prior_mean,
                          temperature, enable_backprop, dict_key_x, dict_key_y, backend,
-                         backend_kwargs, device=device)
+                         backend_kwargs, device=device, parallel=parallel)
 
     @property
     def V(self) -> torch.Tensor:
@@ -936,7 +1012,8 @@ class LowRankLaplace(ParametricLaplace):
         (reference `baselaplace.py:1950-1987`); `n_outputs` and the
         regression target check come from a forward of the first batch's
         first input. The Lanczos start vector is drawn from `generator`
-        (a fresh one seeded 0 when None). `fit_seconds["lanczos"]` records
+        (a fresh one seeded 0 when None); under `parallel` each matvec sums
+        each rank's rows over the ranks. `fit_seconds["lanczos"]` records
         the run's wall time."""
         if not override:
             raise ValueError("LowRank LA does not support updating.")
@@ -953,7 +1030,8 @@ class LowRankLaplace(ParametricLaplace):
         self._sync()
         t0 = time.perf_counter()
         U, eigvals, loss = self.backend.eig_lowrank(train_loader, self.low_rank, generator,
-                                                    unpack=self._unpack_batch)
+                                                    unpack=self._unpack_batch,
+                                                    parallel=self.parallel)
         self._sync()
         self.fit_seconds["lanczos"] = time.perf_counter() - t0
         self.H = (U, eigvals)

@@ -367,13 +367,14 @@ class CurvatureBackend:
 
     # ---- lowrank
     def eig_lowrank(self, loader, low_rank: int = 10, generator: torch.Generator | None = None,
-                    unpack=None):
+                    unpack=None, parallel=None):
         """The top `low_rank` eigenpairs (eigenvalues above 1e-6) of the
         whole loader's curvature by matrix-free Lanczos, and the total loss
-        (`lanczos.py`; the JAX package's `backend.py:504-509`)."""
+        (`lanczos.py`; the JAX package's `backend.py:504-509`), spread over
+        `parallel`'s ranks when given."""
         from laplace_jax_torch.curvature.lanczos import lanczos_eig_curvature
 
-        return lanczos_eig_curvature(self, loader, low_rank, generator, unpack)
+        return lanczos_eig_curvature(self, loader, low_rank, generator, unpack, parallel)
 
 
 def _warn_batch_fallback(exc: Exception) -> None:

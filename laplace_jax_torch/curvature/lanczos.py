@@ -12,6 +12,11 @@ min(max(4k + 16, k + 2), P) Lanczos steps, never forming the P x P matrix:
 - each step reorthogonalizes once against the whole basis, `w -= V (Vᵀ w)`,
   as the JAX package does (in float32 the basis still loses orthogonality
   at large P; callers measure it);
+- under a `DataParallel` (`parallel=`), each rank keeps its row block of
+  every batch (`tensor_split`); each matvec and the loss sum those rows and
+  are summed over the ranks (`all_reduce`), so every rank runs the same
+  iteration on the same numbers, from the same start vector to T's `eigh`
+  (the JAX package's `lanczos.py:115-150` shards the batch axis);
 - the iteration stops at breakdown (β < 1e-12); the tridiagonal T goes to
   the host in float64, and of its `eigh` the top k eigenvalues above 1e-6
   are kept, with their Ritz vectors.
@@ -28,6 +33,7 @@ import torch
 from torch.func import grad, jvp, vjp
 
 from laplace_jax_torch.enums import Likelihood
+from laplace_jax_torch.nnmodel import batch_slice
 from laplace_jax_torch.utils.device import to_device
 
 __all__ = ["lanczos_eig_curvature", "batch_hvp_fn", "curvature_matvec", "start_vector"]
@@ -71,9 +77,9 @@ def batch_hvp_fn(backend):
     return ggn_vp
 
 
-def curvature_matvec(backend, batches):
+def curvature_matvec(backend, batches, parallel=None):
     """`v -> Σ_batches H_b v` at the MAP, over `(x, y)` batches on the
-    parameters' device."""
+    parameters' device, summed over `parallel`'s ranks when given."""
     hvp = batch_hvp_fn(backend)
     theta = backend.model.mean_vector
 
@@ -81,7 +87,7 @@ def curvature_matvec(backend, batches):
         out = torch.zeros_like(v)
         for x, y in batches:
             out += hvp(theta, v, x, y)
-        return out
+        return out if parallel is None else parallel.all_reduce(out)
 
     return matvec
 
@@ -95,9 +101,21 @@ def start_vector(P: int, dtype, device, generator: torch.Generator | None) -> to
     return v0 / torch.linalg.norm(v0)
 
 
+def _rank_rows(batches, parallel):
+    """This rank's row block of each batch; batches it has no rows of are
+    left out."""
+    out = []
+    for x, y in batches:
+        sl = parallel.rows(y.shape[0])
+        if sl.stop > sl.start:
+            out.append((batch_slice(x, sl), y[sl]))
+    return out
+
+
 @torch.no_grad()
 def lanczos_eig_curvature(backend, loader, low_rank: int = 10,
-                          generator: torch.Generator | None = None, unpack=None):
+                          generator: torch.Generator | None = None, unpack=None,
+                          parallel=None):
     """(eigenvectors (P, k'), eigenvalues (k',), loss): the top `low_rank`
     eigenpairs of Σ_batches curvature with eigenvalues above 1e-6, and the
     total loss times `backend.factor` (the JAX package's
@@ -110,7 +128,11 @@ def lanczos_eig_curvature(backend, loader, low_rank: int = 10,
     P, dtype, device = theta.shape[0], theta.dtype, theta.device
     unpack = unpack or (lambda data: data)
     batches = [tuple(to_device(a, device, dtype) for a in unpack(data)) for data in loader]
-    matvec = curvature_matvec(backend, batches)
+    if parallel is not None and parallel.size > 1:
+        batches = _rank_rows(batches, parallel)
+    else:
+        parallel = None
+    matvec = curvature_matvec(backend, batches, parallel)
 
     m = int(min(max(4 * low_rank + 16, low_rank + 2), P))
     V = torch.zeros(P, m, dtype=dtype, device=device)
@@ -137,5 +159,8 @@ def lanczos_eig_curvature(backend, loader, low_rank: int = 10,
     evals, evecs = evals[order], evecs[:, order]
     keep = evals > 1e-6
     ritz = V[:, :k] @ torch.as_tensor(evecs[:, keep], dtype=dtype, device=device)
-    loss = sum(backend.lossfunc(model.apply(x), y) for x, y in batches)
+    loss = sum((backend.lossfunc(model.apply(x), y) for x, y in batches),
+               torch.zeros((), dtype=dtype, device=device))
+    if parallel is not None:
+        loss = parallel.all_reduce(loss)
     return ritz, torch.as_tensor(evals[keep], dtype=dtype, device=device), backend.factor * loss

@@ -69,11 +69,11 @@ class FunctionalLaplace(BaseLaplace):
                  enable_backprop: bool = False, dict_key_x: str = "input_ids",
                  dict_key_y: str = "labels", independent_outputs: bool = False,
                  seed: int = 0, streaming: bool | None = None, backend="ggn",
-                 backend_kwargs: dict | None = None, device=None):
+                 backend_kwargs: dict | None = None, device=None, parallel=None):
         self._check_prior_precision(prior_precision)
         super().__init__(model, likelihood, sigma_noise, prior_precision, prior_mean,
                          temperature, enable_backprop, dict_key_x, dict_key_y, backend,
-                         backend_kwargs, device=device)
+                         backend_kwargs, device=device, parallel=parallel)
         self.n_subset = n_subset
         self.independent_outputs = independent_outputs
         self.seed = seed
@@ -98,7 +98,10 @@ class FunctionalLaplace(BaseLaplace):
 
     # ---- fitting
     def _jacobians(self, x):
-        Js, f = self.backend._jacobians_dispatch(x)
+        """The Jacobians and outputs of a batch; under `parallel` each rank
+        takes its rows and the results are gathered (the JAX package's
+        `functional_laplace.py:95-104`)."""
+        Js, f = self._over_ranks(x, self.backend._jacobians_dispatch)
         return Js.detach(), f.detach()
 
     @full_f32()
@@ -512,11 +515,12 @@ class FunctionalLLLaplace(FunctionalLaplace):
                  feature_reduction: FeatureReduction | str | None = None,
                  dict_key_x: str = "input_ids", dict_key_y: str = "labels",
                  last_layer_name: str | None = None, independent_outputs: bool = False,
-                 seed: int = 0, backend="ggn", backend_kwargs: dict | None = None, device=None):
+                 seed: int = 0, backend="ggn", backend_kwargs: dict | None = None, device=None,
+                 parallel=None):
         super().__init__(model, likelihood, n_subset, sigma_noise, prior_precision, prior_mean,
                          temperature, enable_backprop, dict_key_x, dict_key_y,
                          independent_outputs, seed, backend=backend,
-                         backend_kwargs=backend_kwargs, device=device)
+                         backend_kwargs=backend_kwargs, device=device, parallel=parallel)
         self._full_model = self.model
         self.feature_reduction = feature_reduction
         self._last_layer_name = last_layer_name

@@ -45,7 +45,7 @@ class LLLaplace(ParametricLaplace):
 
     `last_layer_name` is the head's torch module name (`"Dense_0"`,
     `"head.fc"`); None finds it on the first fit batch.
-    `backend` and `backend_kwargs` are `BaseLaplace`'s. Further keyword
+    `backend`, `backend_kwargs` and `parallel` are `BaseLaplace`'s. Further keyword
     arguments go to the posterior class (`damping` for Kron).
     """
 
@@ -54,14 +54,15 @@ class LLLaplace(ParametricLaplace):
                  feature_reduction: FeatureReduction | str | None = None,
                  dict_key_x: str = "input_ids", dict_key_y: str = "labels",
                  last_layer_name: str | None = None, backend=None,
-                 backend_kwargs: dict | None = None, device=None, **kwargs):
+                 backend_kwargs: dict | None = None, device=None, parallel=None, **kwargs):
         if feature_reduction is not None and feature_reduction not in [
                 fr.value for fr in FeatureReduction]:
             raise ValueError("`feature_reduction` must take value in the `FeatureReduction "
                              "enum` or one of `{'pick_first', 'pick_last', 'average'}`!")
         super().__init__(model, likelihood, sigma_noise, 1.0, 0.0, temperature,
                          enable_backprop, dict_key_x, dict_key_y, backend=backend,
-                         backend_kwargs=backend_kwargs, device=device, **kwargs)
+                         backend_kwargs=backend_kwargs, device=device, parallel=parallel,
+                         **kwargs)
         self._full_model = self.model
         self.feature_reduction = feature_reduction
         self._last_layer_name = last_layer_name

@@ -15,12 +15,14 @@ panel kernel (`ops/latrd.py`) for 512 <= n < 2304 and the symmetric-half
 kernel (`ops/latrd_v4.py`) for n >= 2304, otherwise the plain stage 1. The
 v3 and v2 kernels (`ops/latrd_v3.py`, `ops/latrd_v2.py`) run only when
 asked for by name, as their JAX counterparts are never picked
-automatically.
+automatically; the environment variable `LAPLACE_TS_STAGE1` overrides the
+choice with v1, v4 or the plain stage 1, as in the JAX package.
 """
 
 from __future__ import annotations
 
 import math
+import os
 
 import numpy as np
 import torch
@@ -344,10 +346,22 @@ STAGE1 = {"latrd": tridiagonalize_latrd, "latrd_v4": tridiagonalize_latrd_v4,
           "plain": tridiagonalize}
 
 
+# `LAPLACE_TS_STAGE1` values: the JAX package's three names (its
+# `tridiag_eig.py:487-489`) and the port's spellings of the same routes
+STAGE1_OVERRIDE = {"pallas": "latrd", "pallas_v4": "latrd_v4", "xla": "plain",
+                   "latrd": "latrd", "latrd_v4": "latrd_v4", "plain": "plain"}
+
+
 def _stage1_impl(n: int, stage1: str, device: torch.device) -> str:
-    """Stage-1 implementation, a name in `STAGE1`; "auto" follows the JAX
-    package's thresholds on CUDA (v1 for 512 <= n < 2304, v4 above) and
+    """Stage-1 implementation, a name in `STAGE1`. The environment variable
+    `LAPLACE_TS_STAGE1` beats the argument and the auto rule when it names a
+    route of `STAGE1_OVERRIDE` (v1, v4 or plain, as in the JAX package; it
+    cannot select v3 or v2); any other value is ignored. "auto" follows the
+    JAX package's thresholds on CUDA (v1 for 512 <= n < 2304, v4 above) and
     takes "plain" elsewhere."""
+    env = os.environ.get("LAPLACE_TS_STAGE1")
+    if env in STAGE1_OVERRIDE:
+        return STAGE1_OVERRIDE[env]
     if stage1 != "auto":
         return stage1
     if device.type != "cuda" or n < 512:
@@ -363,7 +377,8 @@ def eigh_stack_ts(stack: torch.Tensor, nb: int = 64, stage1: str = "auto", devic
 
     Runs on `device` (CUDA unless the caller asks for the CPU). `stage1`:
     "auto" or a name in `STAGE1` ("latrd", "latrd_v4", "latrd_v3",
-    "latrd_v2", "plain"); the kernel routes take their plain PyTorch panels
+    "latrd_v2", "plain"), unless `LAPLACE_TS_STAGE1` overrides it
+    (`_stage1_impl`); the kernel routes take their plain PyTorch panels
     when the stack lies on the CPU.
     """
     dev = resolve_device(device)

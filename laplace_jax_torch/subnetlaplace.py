@@ -33,12 +33,13 @@ class SubnetLaplace(ParametricLaplace):
     def __init__(self, model, likelihood, subnetwork_indices, sigma_noise=1.0,
                  prior_precision=1.0, prior_mean=0.0, temperature: float = 1.0,
                  backend=None, backend_kwargs: dict | None = None,
-                 dict_key_x: str = "input_ids", dict_key_y: str = "labels", device=None):
+                 dict_key_x: str = "input_ids", dict_key_y: str = "labels", device=None,
+                 parallel=None):
         super().__init__(model, likelihood, sigma_noise=sigma_noise,
                          prior_precision=prior_precision, prior_mean=prior_mean,
                          temperature=temperature, dict_key_x=dict_key_x,
                          dict_key_y=dict_key_y, backend=backend,
-                         backend_kwargs=backend_kwargs, device=device)
+                         backend_kwargs=backend_kwargs, device=device, parallel=parallel)
         if isinstance(self._backend_arg, str) and self._backend_arg == "hessian":
             raise ValueError("SubnetLaplace can only be used with GGN and EF.")
         self._check_subnetwork_indices(subnetwork_indices)

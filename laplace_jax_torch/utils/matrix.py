@@ -15,7 +15,9 @@ goes instead to one pooled spectral divide-and-conquer call
 (`ops/eigh_dc.eigh_pooled_dc`). Each factor's output is checked for NaN; a
 bad factor takes the `symeig` jitter retry, and `SYMEIG_RETRIES` counts
 those factors, so an eigensolver that returns NaN cannot hide behind the
-retry.
+retry. `decompose(devices=[...])` spreads the factors over several devices
+(largest first, to the least-loaded), as the JAX package's multi-device
+decompose does.
 """
 
 from __future__ import annotations
@@ -81,6 +83,20 @@ def _batched_eigh_clipped(stack: torch.Tensor):
     if _use_ts(stack):
         return _clip_flags(*eigh_stack_ts(stack, device=stack.device))
     return _clip_flags(*torch.linalg.eigh(stack))
+
+
+def _device_list(devices) -> list:
+    """`devices` as a list of `torch.device`s: none for None, this
+    process's own device for a `DeviceMesh` (the JAX package's
+    `_device_list` keeps a process's addressable devices; here a process
+    has one)."""
+    if devices is None:
+        return []
+    if hasattr(devices, "device_type"):  # a DeviceMesh
+        if devices.device_type == "cuda":
+            return [torch.device("cuda", torch.cuda.current_device())]
+        return [torch.device(devices.device_type)]
+    return [torch.device(d) for d in devices]
 
 
 def broadcast_groups(values: torch.Tensor, sizes) -> torch.Tensor:
@@ -193,37 +209,54 @@ class Kron:
         return block_diag([F[0] if len(F) == 1 else kron(F[0], F[1]) for F in self.kfacs])
 
     @full_f32()
-    def decompose(self, damping: bool = False) -> "KronDecomposed":
-        """Eigendecompose every factor, one batched call per (shape, dtype),
-        or, with `EIGH_IMPLEMENTATION = "dc"`, one pooled D&C call for all
-        eligible classes of each dtype."""
+    def decompose(self, damping: bool = False, devices=None) -> "KronDecomposed":
+        """Eigendecompose every factor: one batched call per (device, shape,
+        dtype), or, with `EIGH_IMPLEMENTATION = "dc"`, one pooled D&C call
+        for all eligible classes of each (device, dtype).
+
+        `devices` (the JAX package's `utils/matrix.py:340-470`): None (the
+        factors' own device), a sequence of `torch.device`s, or a
+        `DeviceMesh`, which stands for this process's own device (each rank
+        of a data-parallel fit decomposes every factor itself; no factor is
+        split across ranks). Factors go greedily, largest n³ first, to the
+        least-loaded device (a device may be named twice); every solve is
+        enqueued before any result is read; results are gathered to the
+        first device, the NaN flags read once, and the flagged factors
+        retried through `symeig`."""
+        global SYMEIG_RETRIES
         _check_implementation()
-        by_shape: dict = {}
-        for gi, F in enumerate(self.kfacs):
-            for fi, H in enumerate(F):
-                by_shape.setdefault((tuple(H.shape), H.dtype), []).append((gi, fi))
-        results = {}
-
-        def collect(keys, ls, Qs, flags):
-            global SYMEIG_RETRIES
-            for j, (key, bad) in enumerate(zip(keys, flags.tolist())):
-                gi, fi = key
-                results[key] = (ls[j], Qs[j])
-                if bad:
-                    SYMEIG_RETRIES += 1
-                    results[key] = symeig(self.kfacs[gi][fi])
-
-        dc_by_dtype: dict = {}
-        for keys in by_shape.values():
-            stack = torch.stack([self.kfacs[gi][fi] for gi, fi in keys])
+        dev_list = _device_list(devices) or [self.kfacs[0][0].device]
+        keys = [(gi, fi) for gi, F in enumerate(self.kfacs) for fi in range(len(F))]
+        loads, device_of = [0.0] * len(dev_list), {}
+        for gi, fi in sorted(keys, key=lambda k: -self.kfacs[k[0]][k[1]].shape[0] ** 3):
+            device_of[(gi, fi)] = d = loads.index(min(loads))
+            loads[d] += float(self.kfacs[gi][fi].shape[0]) ** 3
+        groups: dict = {}
+        for gi, fi in sorted(keys, key=device_of.get):  # each device's in factor order
+            H = self.kfacs[gi][fi]
+            groups.setdefault((device_of[(gi, fi)], tuple(H.shape), H.dtype), []).append((gi, fi))
+        pending, dc_pools = [], {}
+        for (d, _, dtype), keys in groups.items():
+            stack = torch.stack([self.kfacs[gi][fi].to(dev_list[d]) for gi, fi in keys])
             if _use_dc(stack):
-                dc_by_dtype.setdefault(stack.dtype, []).append((keys, stack))
-                continue
-            collect(keys, *_batched_eigh_clipped(stack))
-        for pool in dc_by_dtype.values():
-            outs = eigh_pooled_dc([stack for _, stack in pool], device=pool[0][1].device)
-            for (keys, _), (l, Q) in zip(pool, outs):
-                collect(keys, *_clip_flags(l, Q))
+                dc_pools.setdefault((d, dtype), []).append((keys, stack))
+            else:
+                pending.append((keys, *_batched_eigh_clipped(stack)))
+        for (d, _), pool in dc_pools.items():
+            outs = eigh_pooled_dc([stack for _, stack in pool], device=dev_list[d])
+            pending.extend((keys, *_clip_flags(l, Q)) for (keys, _), (l, Q) in zip(pool, outs))
+        first = dev_list[0]
+        results, flag_keys = {}, []
+        for keys, ls, Qs, _ in pending:
+            ls, Qs = ls.to(first), Qs.to(first)
+            for j, key in enumerate(keys):
+                results[key] = (ls[j], Qs[j])
+            flag_keys.extend(keys)
+        flags = torch.cat([f.to(first) for *_, f in pending]).tolist()  # the one read
+        for (gi, fi), bad in zip(flag_keys, flags):
+            if bad:
+                SYMEIG_RETRIES += 1
+                results[(gi, fi)] = symeig(self.kfacs[gi][fi].to(first))
         eigvecs = [tuple(results[(gi, fi)][1] for fi in range(len(F)))
                    for gi, F in enumerate(self.kfacs)]
         eigvals = [tuple(results[(gi, fi)][0] for fi in range(len(F)))
