@@ -90,6 +90,20 @@ Phases, each printing one JSON line; any failed check exits non-zero:
              `windows` (each a persistent launch, v2's windows of the 2304
              and 4608 classes streaming most of their rows): the v3 and v2
              rows gain `ms_by_window` and `route_ms`;
+   sbr     - the successive band reduction (`ops/band.py`, `ops/chase.py`:
+             plain PyTorch, no kernel, as the JAX package's XLA code) on
+             every factor class n >= 512 of the `main` fit (6x512, 5x576,
+             4x1152, 4x2304, 3x4608, float32, b = 64): band_reduce ->
+             band_to_tridiag -> tridiag_eigh -> apply_chase_q -> apply_q on
+             the card, eigenvalues against float64 `eigvalsh` (EIG_TOL),
+             reconstruction and orthogonality (RECON_TOL), no kernel
+             launched, each stage's seconds beside the class's
+             `eigh_stack_ts` and `torch.linalg.eigh`, the peak memory; a
+             float64 (2, 576) chain on the card against the CPU (1e-9);
+   examples - each `examples_torch/*.py` `main()` at the JAX example's own
+             sizes on the card, in process: its seconds, every returned
+             number finite, probit rows summing to 1 within 1e-5, the
+             regression example's joint-vs-marginal asserts;
 8. marglik_training - `bench.py` config 3a at full size: BenchCNN (convs
              32/64/64/128 with biases, `Dense_0` to 10), 1024 CIFAR-10-shaped
              inputs, batch 256, 2 epochs, 10 hypersteps a round, Kron,
@@ -1439,6 +1453,145 @@ def eigensolvers_phase(seed, device, main):
           f"float64 dc on the card vs the CPU: {res['dc_f64_gpu_vs_cpu']:.3e} > {DC_F64_TOL}")
     return ({"latrd_panel_v3": res["latrd_v3_launches"]["latrd_panel_v3"],
              "latrd_panel_v2": res["latrd_v2_launches"]["latrd_panel_v2"]}, tally.counts)
+
+
+SBR_B = 64  # the SBR chain's semi-bandwidth (the JAX package's default)
+SBR_STAGES = ("band", "chase", "stage2", "q2", "q1")
+
+
+def sbr_chain(A, secs=None):
+    """Successive band reduction end to end: `band_reduce` -> `band_to_tridiag`
+    -> `tridiag_eigh` -> `apply_chase_q` -> `apply_q`, each stage timed into
+    `secs` (synchronized) when it is given. Returns (eigenvalues, Q) and the
+    tridiagonal (d, e)."""
+    from laplace_jax_torch.ops.band import band_reduce
+    from laplace_jax_torch.ops.chase import apply_chase_q, band_to_tridiag
+    from laplace_jax_torch.ops.tridiag import apply_q
+    from laplace_jax_torch.ops.tridiag_eig import tridiag_eigh
+
+    run = (lambda name, fn: timed(secs, name, fn)) if secs is not None else (lambda _, fn: fn())
+    B, V1, t1 = run("band", lambda: band_reduce(A, b=SBR_B))
+    d, e, V2, t2 = run("chase", lambda: band_to_tridiag(B, SBR_B))
+    lam, Ut = run("stage2", lambda: tridiag_eigh(d, e))
+    U2 = run("q2", lambda: apply_chase_q(V2, t2, Ut, b=SBR_B))
+    return lam, run("q1", lambda: apply_q(V1, t1, U2)), d, e
+
+
+def sbr_phase(device, smi, keep):
+    """The SBR chain (no kernel of its own; the JAX package's standalone op
+    chain, which no entry point reaches) on every factor class n >= 512 of
+    the main path's fit, float32, on the card: eigenvalues against float64
+    `eigvalsh`, reconstruction and orthogonality, each stage's seconds
+    beside that class's `eigh_stack_ts` and `torch.linalg.eigh`; then a
+    float64 (2, 576) chain on the card against the CPU."""
+    import torch
+
+    from laplace_jax_torch.ops.tridiag_eig import eigh_stack_ts
+
+    stacks = class_stacks(keep["main_kron"][0].H_facs.kfacs)
+    res = dict(phase="sbr", nvidia_smi=smi, source="main path's ResNet-18 Kron factors",
+               b=SBR_B, dtype="float32",
+               classes={n: list(st.shape) for n, (_, st) in stacks.items()})
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    secs, errs = {}, {}
+    for n, (_, st) in stacks.items():
+        secs[n] = {}
+        lam, Q, _, _ = sbr_chain(st, secs[n])
+        ref = torch.linalg.eigvalsh(st.double())
+        lam, Q, Sd = lam.double(), Q.double(), st.double()
+        eye = torch.eye(n, dtype=torch.float64, device=device)
+        errs[n] = dict(
+            eig_rel_err=float(((lam - ref).abs().amax(1) / ref.abs().amax(1)).max()),
+            recon_rel_err=float((torch.linalg.matrix_norm(Q @ torch.diag_embed(lam) @ Q.mT - Sd)
+                                 / torch.linalg.matrix_norm(Sd)).max()),
+            orth_err=float((Q.mT @ Q - eye).abs().max()))
+        del lam, Q, Sd
+    res["chain_kernel_launches"] = sum(kernel_launches().values())
+    res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    for n, (_, st) in stacks.items():
+        timed(secs[n], "eigh_stack_ts", lambda: eigh_stack_ts(st, device=device))
+        timed(secs[n], "torch_eigh", lambda: torch.linalg.eigh(st))
+        secs[n]["sbr_total"] = sum(secs[n][k] for k in SBR_STAGES)
+    res.update(seconds=secs, errors=errs,
+               sbr_total_s=sum(v["sbr_total"] for v in secs.values()),
+               eigh_stack_ts_total_s=sum(v["eigh_stack_ts"] for v in secs.values()),
+               torch_eigh_total_s=sum(v["torch_eigh"] for v in secs.values()))
+
+    # float64 on the card against the same chain on the CPU
+    S = stacks[576][1][:2].double()
+    l_gpu = sbr_chain(S)[0]
+    l_cpu = sbr_chain(S.cpu())[0]
+    res["f64_gpu_vs_cpu"] = float((l_gpu.cpu() - l_cpu).abs().max() / l_cpu.abs().max())
+    emit(res)
+
+    check(res["chain_kernel_launches"] == 0,
+          f"the SBR chain launched {res['chain_kernel_launches']} kernels")
+    for n, r in errs.items():
+        check(r["eig_rel_err"] <= EIG_TOL,
+              f"sbr eigenvalues at n={n} off by {r['eig_rel_err']:.3e} > {EIG_TOL}")
+        check(r["recon_rel_err"] <= RECON_TOL,
+              f"sbr reconstruction at n={n}: {r['recon_rel_err']:.3e} > {RECON_TOL}")
+        check(r["orth_err"] <= RECON_TOL,
+              f"sbr orthogonality at n={n}: {r['orth_err']:.3e} > {RECON_TOL}")
+    check(res["f64_gpu_vs_cpu"] <= DC_F64_TOL,
+          f"float64 sbr on the card vs the CPU: {res['f64_gpu_vs_cpu']:.3e} > {DC_F64_TOL}")
+
+
+EXAMPLES = ("regression_example", "calibration_example", "calibration_gp_example",
+            "huggingface_example", "reward_modeling_example", "bayesopt_example",
+            "expectation_example")
+ROW_TOL = 1e-5  # a probit predictive's rows sum to 1
+
+
+def result_numbers(out) -> list:
+    """Every number in an example's nested result."""
+    if isinstance(out, dict):
+        return [x for v in out.values() for x in result_numbers(v)]
+    if isinstance(out, (list, tuple)):
+        return [x for v in out for x in result_numbers(v)]
+    return [out] if isinstance(out, (int, float)) else []
+
+
+def row_sum_errors(out) -> list:
+    """|row sum - 1| of every probit predictive in an example's result: its
+    `probs*` lists and `row_sum_err` entries."""
+    errs = []
+    for k, v in out.items():
+        if isinstance(v, dict):
+            errs += row_sum_errors(v)
+        elif k.startswith("probs"):
+            errs += [abs(sum(row) - 1) for row in v]
+        elif k == "row_sum_err":
+            errs.append(v)
+    return errs
+
+
+def examples_phase(device, smi):
+    """Each `examples_torch/*.py` `main()` on the card at the JAX example's own
+    sizes, in this process (its printout kept out of this script's output):
+    every returned number finite, the probit rows summing to 1, the
+    regression example's joint-vs-marginal asserts (inside its `main`)."""
+    import contextlib
+    import importlib
+    import io
+
+    res = dict(phase="examples", nvidia_smi=smi, seconds={}, results={})
+    for name in EXAMPLES:
+        main = importlib.import_module(f"examples_torch.{name}").main
+        with contextlib.redirect_stdout(io.StringIO()):
+            res["results"][name] = timed(res["seconds"], name, lambda: main(device=device))
+    res["total_s"] = sum(res["seconds"].values())
+    emit(res)
+    for name, out in res["results"].items():
+        vals = result_numbers(out)
+        check(bool(vals) and all(math.isfinite(v) for v in vals),
+              f"example {name} returned a number that is not finite")
+        errs = row_sum_errors(out)
+        check(all(e <= ROW_TOL for e in errs),
+              f"example {name}: probit rows sum to 1 only within {max(errs, default=0.0):.3e}")
+    for name in ("calibration_example", "calibration_gp_example", "huggingface_example"):
+        check(bool(row_sum_errors(res["results"][name])), f"example {name} returned no probit")
 
 
 # bench.py config 3a: marglik_training on BenchCNN, N = 1024, batch 256, 2 epochs
@@ -3503,6 +3656,9 @@ def main() -> None:
     route_launches, route_panels = eigensolvers_phase(args.seed, device, main)
     launches.update(route_launches)
     window_phase(rows, route_panels, args.seed, device, smi, total="route_ms")
+    # the SBR op chain on the main path's factor classes, then the examples
+    sbr_phase(device, smi, keep)
+    examples_phase(device, smi)
     # the marglik-training and regression paths, each read from its own run
     by_path = {"parallel": parallel_launches,
                "marglik_training": marglik_training_phase(args.seed, device, smi),

@@ -27,13 +27,22 @@ from laplace_jax_torch.ops.im2col import as_tuple, dilate_input, pad_input
 from laplace_jax_torch.utils.flatten import CONV, from_flax_layout
 
 __all__ = ["Embed", "DenseGeneral", "Einsum", "MultiHeadDotProductAttention", "LayerNorm",
-           "RMSNorm", "BatchNorm", "GroupNorm", "InstanceNorm", "Conv"]
+           "RMSNorm", "BatchNorm", "GroupNorm", "InstanceNorm", "Conv", "init_dense"]
 
 
 def _trunc_normal(t, std, generator):
     # flax's truncated normal: unit-variance after truncation at +-2 sigma
     s = std / 0.87962566103423978
     nn.init.trunc_normal_(t, 0.0, s, -2 * s, 2 * s, generator=generator)
+
+
+@torch.no_grad()
+def init_dense(m: nn.Linear, generator: torch.Generator | None = None) -> None:
+    """flax `nn.Dense`'s initializers on an `nn.Linear`: a lecun-normal
+    kernel (truncated normal, variance 1 / fan-in), a zero bias."""
+    _trunc_normal(m.weight, math.sqrt(1.0 / m.in_features), generator)
+    if m.bias is not None:
+        m.bias.zero_()
 
 
 def _shape(n) -> tuple:
@@ -164,11 +173,13 @@ class Einsum(nn.Module):
 
 class MultiHeadDotProductAttention(nn.Module):
     """flax `nn.MultiHeadDotProductAttention(num_heads, qkv_features)` in
-    self-attention, without mask or dropout (inference): `query`, `key` and
+    self-attention, without dropout (inference): `query`, `key` and
     `value` are `DenseGeneral(d -> (heads, head_dim))`, `out` is
     `DenseGeneral((heads, head_dim) -> out_features)`. As flax's
     `dot_product_attention`, the query is divided by sqrt(head_dim) before
-    the logits einsum and the softmax runs over the keys."""
+    the logits einsum and the softmax runs over the keys; where a boolean
+    `mask` (broadcast to (..., heads, queries, keys)) is False, the logit
+    is the dtype's least value first."""
 
     def __init__(self, features: int, num_heads: int, qkv_features: int | None = None,
                  out_features: int | None = None, generator: torch.Generator | None = None):
@@ -182,10 +193,13 @@ class MultiHeadDotProductAttention(nn.Module):
         self.value = DenseGeneral(features, heads, generator=generator)
         self.out = DenseGeneral(heads, out_features or features, generator=generator)
 
-    def forward(self, x):
+    def forward(self, x, mask=None):
         q, k, v = self.query(x), self.key(x), self.value(x)  # (..., T, heads, head_dim)
         q = q / math.sqrt(q.shape[-1])
-        w = torch.softmax(torch.einsum("...qhd,...khd->...hqk", q, k), dim=-1)
+        logits = torch.einsum("...qhd,...khd->...hqk", q, k)
+        if mask is not None:
+            logits = torch.where(mask, logits, torch.finfo(logits.dtype).min)
+        w = torch.softmax(logits, dim=-1)
         return self.out(torch.einsum("...hqk,...khd->...qhd", w, v))
 
 

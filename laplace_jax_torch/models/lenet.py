@@ -10,13 +10,12 @@ flattened in NHWC order, as flax flattens them.
 
 from __future__ import annotations
 
-import math
-
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from laplace_jax_torch.models.resnet import Conv, _trunc_normal, init_conv
+from laplace_jax_torch.models.flax_layers import init_dense
+from laplace_jax_torch.models.resnet import Conv, init_conv
 
 __all__ = ["LeNet"]
 
@@ -43,8 +42,7 @@ class LeNet(nn.Module):
         for conv in (self.Conv_0, self.Conv_1):
             init_conv(conv, generator)
         for dense in (self.Dense_0, self.Dense_1, self.Dense_2):
-            _trunc_normal(dense.weight, math.sqrt(1.0 / dense.in_features), generator)
-            dense.bias.zero_()
+            init_dense(dense, generator)
 
     def forward(self, x):
         x = x.permute(0, 3, 1, 2)  # NHWC -> NCHW

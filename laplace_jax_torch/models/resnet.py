@@ -25,7 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from laplace_jax_torch.models.flax_layers import Conv as FlaxConv, _trunc_normal
+from laplace_jax_torch.models.flax_layers import Conv as FlaxConv, _trunc_normal, init_dense
 from laplace_jax_torch.utils.flatten import from_flax_layout, weight_layout
 
 __all__ = ["Conv", "ResidualBlock", "ResNet", "ResNet18", "init_conv", "state_dict_from_flax"]
@@ -88,9 +88,7 @@ class ResNet(nn.Module):
         for m in self.modules():
             if isinstance(m, Conv):
                 init_conv(m, generator)
-        _trunc_normal(self.Dense_0.weight,
-                      math.sqrt(1.0 / self.Dense_0.in_features), generator)
-        self.Dense_0.bias.zero_()
+        init_dense(self.Dense_0, generator)
 
     def forward(self, x):
         x = F.relu(self.Conv_0(x.permute(0, 3, 1, 2)))  # NHWC -> NCHW

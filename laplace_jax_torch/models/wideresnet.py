@@ -16,14 +16,12 @@ NCHW inside, and the norms act on axis 1.
 
 from __future__ import annotations
 
-import math
-
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from laplace_jax_torch.models.flax_layers import BatchNorm, GroupNorm, LayerNorm
-from laplace_jax_torch.models.resnet import Conv, _trunc_normal, init_conv
+from laplace_jax_torch.models.flax_layers import BatchNorm, GroupNorm, LayerNorm, init_dense
+from laplace_jax_torch.models.resnet import Conv, init_conv
 
 __all__ = ["WideBlock", "WideResNet16x4"]
 
@@ -102,8 +100,7 @@ class WideResNet16x4(nn.Module):
         for m in self.modules():
             if isinstance(m, Conv):
                 init_conv(m, generator)
-        _trunc_normal(self.Dense_0.weight, math.sqrt(1.0 / self.Dense_0.in_features), generator)
-        self.Dense_0.bias.zero_()
+        init_dense(self.Dense_0, generator)
 
     def forward(self, x):
         x = self.Conv_0(x.permute(0, 3, 1, 2))  # NHWC -> NCHW

@@ -38,6 +38,20 @@ def eps_tiny(dtype) -> float:
     return 1e-290 if dtype == torch.float64 else torch.finfo(dtype).tiny * 1e4
 
 
+def reflector(alpha: torch.Tensor, xnorm2: torch.Tensor, tiny: float):
+    """The Householder reflector taking (alpha, x) to (beta, 0), as the JAX
+    package forms it, from alpha and |x|^2: `(tau, denom, beta, trivial)`,
+    with v = x / denom under a unit leading entry; where |x|^2 <= tiny
+    |(alpha, x)|^2 it is the identity (tau = 0, denom = 1)."""
+    anorm = torch.sqrt(alpha * alpha + xnorm2)
+    sign = torch.where(alpha >= 0, 1.0, -1.0).to(alpha.dtype)
+    beta = -sign * anorm
+    trivial = xnorm2 <= tiny * anorm * anorm
+    denom = torch.where(trivial, 1.0, alpha - beta)
+    tau = torch.where(trivial, 0.0, (beta - alpha) / torch.where(trivial, 1.0, beta))
+    return tau, denom, beta, trivial
+
+
 def full_matvec(Aw: torch.Tensor):
     """`y = Aw v` per k."""
     return lambda v: (Aw @ v[:, :, None])[:, :, 0]
@@ -76,13 +90,7 @@ def panel_plain(Aw, off: int, q_base: int, n_real: int, nb: int, matvec=None):
         d_val = col[:, c]
         alpha = col[:, c + 1] if c + 1 < m else torch.zeros(K, dtype=dtype, device=dev)
         xnorm2 = ((x * x).sum(1) - alpha * alpha).clamp(min=0.0)
-        anorm = torch.sqrt(alpha * alpha + xnorm2)
-        sign = torch.where(alpha >= 0, 1.0, -1.0).to(dtype)
-        beta = -sign * anorm
-        trivial = xnorm2 <= tiny * anorm * anorm
-        denom = torch.where(trivial, 1.0, alpha - beta)
-        beta_safe = torch.where(trivial, 1.0, beta)
-        tau = torch.where(trivial, 0.0, (beta - alpha) / beta_safe)
+        tau, denom, beta, trivial = reflector(alpha, xnorm2, tiny)
         tau = tau if ok else torch.zeros_like(tau)
         e_val = torch.where(trivial, alpha, beta)
         v = torch.where(below, x / denom[:, None], zero)
@@ -209,6 +217,19 @@ def _tridiag_small(A):
     return d, e, A.new_zeros(K, n, n), A.new_zeros(K, n)
 
 
+def wy_factor(G: torch.Tensor, taus: torch.Tensor) -> torch.Tensor:
+    """The forward compact-WY factor of a block of reflectors:
+    `T[j, j] = tau_j`, `T[:j, j] = -tau_j T[:j, :j] (V^T v_j)[:j]`, from the
+    Gram matrix `G = V^T V` (..., r, r) and `taus` (..., r)."""
+    r = taus.shape[-1]
+    T = torch.zeros_like(G)
+    for j in range(r):
+        if j:
+            T[..., :j, j] = -taus[..., j, None] * (T[..., :j, :j] @ G[..., :j, j, None])[..., 0]
+        T[..., j, j] = taus[..., j]
+    return T
+
+
 def apply_q(V: torch.Tensor, taus: torch.Tensor, S: torch.Tensor, nb: int = 64):
     """`Q @ S` with `Q = H_0 H_1 ... H_{n-3}` from stage 1; `S` is (K, n, c).
 
@@ -231,13 +252,7 @@ def apply_q(V: torch.Tensor, taus: torch.Tensor, S: torch.Tensor, nb: int = 64):
     tp[:, :n_cols] = taus[:, :n_cols]
     Vb = Vp.reshape(K, n_pad, n_blocks, nb).permute(2, 0, 1, 3)  # (b, K, n_pad, nb)
     G = Vb.mT @ Vb  # (b, K, nb, nb)
-    tb = tp.reshape(K, n_blocks, nb).permute(1, 0, 2)  # (b, K, nb)
-    T = torch.zeros(n_blocks, K, nb, nb, dtype=dtype, device=dev)
-    for j in range(nb):
-        # T[:j, j] = -tau_j T[:j, :j] (V^T v_j)[:j]; T[j, j] = tau_j
-        if j:
-            T[..., :j, j] = -tb[..., j, None] * (T[..., :j, :j] @ G[..., :j, j, None])[..., 0]
-        T[..., j, j] = tb[..., j]
+    T = wy_factor(G, tp.reshape(K, n_blocks, nb).permute(1, 0, 2))  # (b, K, nb, nb)
     for b in reversed(range(n_blocks)):
         out = out - Vb[b] @ (T[b] @ (Vb[b].mT @ out))
     return out[:, :n]

@@ -4,11 +4,12 @@ driver `eigh_stack_ts` (port of `laplace_jax/ops/tridiag_eig.py`).
 Stage 2 is Cuppen's splitting with all rank-one corrections up front, a
 batched round-robin Jacobi base case, and merges with branchless LAPACK
 laed2/laed3-style deflation, an origin-selected bisection + Newton secular
-solver and the Gu-Eisenstat z-recomputation; float32 vectors are
-re-orthonormalized by QR where the JAX package uses CholeskyQR2
-(`_orthonormalize` says why). Everything is batched over
-the K factors of one size. Python loops take the place of the JAX
-package's `fori_loop`s.
+solver and the Gu-Eisenstat z-recomputation. Two departures from the JAX
+package in float32: a merge solves its secular equation in float64
+(`_merge_level` says why), and the vectors are re-orthonormalized by QR
+where the JAX package uses CholeskyQR2 (`_orthonormalize` says why).
+Everything is batched over the K factors of one size. Python loops take
+the place of the JAX package's `fori_loop`s.
 
 `eigh_stack_ts` picks stage 1 as the JAX package does: on CUDA the LATRD
 panel kernel (`ops/latrd.py`) for 512 <= n < 2304 and the symmetric-half
@@ -105,8 +106,15 @@ def _suffix_min(x: torch.Tensor) -> torch.Tensor:
 
 def _merge_level(D, U, rho, z):
     """One D&C merge: eigendecompose diag(D) + rho z z^T with the children's
-    bases folded into U (B, M, M). Returns ascending (lam, U @ G)."""
+    bases folded into U (B, M, M). Returns ascending (lam, U @ G).
+
+    A float32 merge solves its secular equation and builds G in float64
+    (the product U @ G stays float32): in float32 a root can settle a
+    hundred ulps off, and its vector with it."""
     B, M = D.shape
+    out_dtype = D.dtype
+    if out_dtype == torch.float32:
+        D, rho, z = D.double(), rho.double(), z.double()
     dtype, dev = D.dtype, D.device
     eps = torch.finfo(dtype).eps
     tiny = torch.finfo(dtype).tiny * 1e8
@@ -245,10 +253,10 @@ def _merge_level(D, U, rho, z):
     rotated = ~surv & torch.gather(active, 1, rl)
     G = torch.where(active[:, None, :], G_act,
                     torch.where(rotated[:, None, :], G_defl, eye_col))
-    U_new = Up @ G
+    U_new = Up @ G.to(out_dtype)
 
     order = torch.argsort(lam, dim=1, stable=True)
-    lam = torch.gather(lam, 1, order)
+    lam = torch.gather(lam, 1, order).to(out_dtype)
     U_new = torch.gather(U_new, 2, order[:, None, :].expand(B, M, M))
     return lam, U_new
 

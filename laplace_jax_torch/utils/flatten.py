@@ -116,6 +116,17 @@ def leaf_specs(module: nn.Module, trainable=None) -> list[LeafSpec]:
     return specs
 
 
+def params_per_leaf(module: nn.Module) -> list[int]:
+    """The size of each trainable leaf in canonical order (the JAX
+    package's `params_per_leaf` over a parameter tree)."""
+    return [s.size for s in leaf_specs(module)]
+
+
+def num_params(module: nn.Module) -> int:
+    """The number of trainable parameters (the flat vector's length)."""
+    return sum(params_per_leaf(module))
+
+
 def parameters_to_vector(module: nn.Module, specs=None, detach: bool = True) -> torch.Tensor:
     """The flat parameter vector in canonical order and flax layout; with
     `detach=False` it stays in the parameters' graph."""

@@ -3,8 +3,32 @@
 from __future__ import annotations
 
 import torch
+from torch import nn
 
 from laplace_jax_torch.enums import PriorStructure
+from laplace_jax_torch.utils.flatten import params_per_leaf
+
+
+def expand_prior_precision(prior_prec, model: nn.Module) -> torch.Tensor:
+    """A scalar, per-leaf or diagonal prior precision as a (P,) diagonal in
+    canonical flatten order over the trainable leaves of `model`, in their
+    dtype and on their device."""
+    p0 = next(p for p in model.parameters() if p.requires_grad)
+    sizes = params_per_leaf(model)
+    P = sum(sizes)
+    if not torch.is_tensor(prior_prec):
+        prior_prec = torch.as_tensor(prior_prec, dtype=p0.dtype)
+    prior_prec = torch.atleast_1d(prior_prec.to(p0.device))
+    if prior_prec.ndim != 1:
+        raise ValueError("Prior precision must be at most 1-dimensional.")
+    if prior_prec.shape[0] == 1:
+        return prior_prec.expand(P).to(p0.dtype)
+    if prior_prec.shape[0] == P:
+        return prior_prec
+    if prior_prec.shape[0] == len(sizes):
+        return prior_prec.to(p0.dtype).repeat_interleave(
+            torch.as_tensor(sizes, device=p0.device), output_size=P)
+    raise ValueError("Mismatch of prior and model. Diagonal, scalar, or per-layer prior.")
 
 
 def expand_prior_precision_sizes(prior_prec: torch.Tensor, leaf_sizes) -> torch.Tensor:

@@ -1,7 +1,8 @@
 """The PyTorch port imports nothing of JAX or of the JAX package.
 
-An AST check over every module of `laplace_jax_torch/` and over
-`chip_smoke.py`: no `import jax`, `flax`, `optax` or `laplace_jax[.*]`.
+An AST check over every module of `laplace_jax_torch/`, every script of
+`examples_torch/` and `chip_smoke.py`: no `import jax`, `flax`, `optax` or
+`laplace_jax[.*]`.
 And in a fresh interpreter, importing the package, the Lanczos module and
 the flax-layer twins leaves no `jax` and no `laplace_jax` in `sys.modules`.
 """
@@ -15,7 +16,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "laplace_jax")
-FILES = sorted((ROOT / "laplace_jax_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = (sorted((ROOT / "laplace_jax_torch").rglob("*.py"))
+         + sorted((ROOT / "examples_torch").glob("*.py")) + [ROOT / "chip_smoke.py"])
 
 
 def _imported_roots(path: Path):
@@ -37,8 +39,10 @@ def test_port_imports_no_jax(path):
 def test_port_package_is_covered():
     names = {p.name for p in FILES}
     assert {"latrd.py", "latrd_v4.py", "latrd_v3.py", "latrd_v2.py", "eigh_dc.py", "syrk.py",
-            "baselaplace.py", "lllaplace.py", "lanczos.py", "flax_layers.py",
-            "chip_smoke.py"} <= names
+            "baselaplace.py", "lllaplace.py", "lanczos.py", "flax_layers.py", "band.py",
+            "chase.py", "chip_smoke.py"} <= names
+    examples = {p.name for p in FILES if p.parent.name == "examples_torch"}
+    assert examples == {p.name for p in (ROOT / "examples").glob("*.py")}
 
 
 @pytest.mark.parametrize("module", ["laplace_jax_torch", "laplace_jax_torch.curvature.lanczos",
