@@ -37,8 +37,8 @@ the caller's TF32 settings are left as they were.
 
 from __future__ import annotations
 
+import functools
 import math
-import time
 import warnings
 
 import numpy as np
@@ -48,6 +48,7 @@ from laplace_jax_torch.curvature.backend import CurvatureBackend
 from laplace_jax_torch.enums import Likelihood, LinkApprox, PredType, PriorStructure, TuningMethod
 from laplace_jax_torch.nnmodel import NNModel, unpack_batch
 from laplace_jax_torch.parallel.sharding import ensure_group, full_tensor, shard_rows
+from laplace_jax_torch.utils import spans
 from laplace_jax_torch.utils.data import dataset_size
 from laplace_jax_torch.utils.device import full_f32, resolve_device, to_device
 from laplace_jax_torch.utils.flatten import parameters_to_vector
@@ -66,6 +67,18 @@ BACKENDS = {"ggn": ("ggn", False), "mc": ("ggn", True), "ef": ("ef", False),
 
 def _requires_grad(x) -> bool:
     return torch.is_tensor(x) and x.requires_grad
+
+
+def _collected(method):
+    """`method` (a fit, or a load that decomposes) with the instance's
+    per-fit collector open (`utils/spans.collect`): every span inside it
+    adds its seconds to `fit_seconds`."""
+    @functools.wraps(method)
+    def collected(self, *args, **kwargs):
+        with spans.collect(self.fit_seconds, self.device):
+            return method(self, *args, **kwargs)
+
+    return collected
 
 
 class BaseLaplace:
@@ -373,6 +386,7 @@ class BaseLaplace:
     def _log_marglik(self, prior_precision, sigma_noise):
         raise NotImplementedError
 
+    @spans.span("predict.link")
     def _glm_link_output(self, f_mu, f_var, likelihood, joint, link_approx, n_samples,
                          diagonal_output, generator):
         """The link applied to the GLM predictive (reference
@@ -473,6 +487,7 @@ class ParametricLaplace(BaseLaplace):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    @_collected
     @full_f32()
     def fit(self, train_loader, override: bool = True,
             generator: torch.Generator | None = None) -> None:
@@ -482,7 +497,8 @@ class ParametricLaplace(BaseLaplace):
         draws from `generator`, else from this instance's generator. Under
         `parallel` each batch goes through `parallel.wrap` (each rank's
         rows, summed over the ranks).
-        `fit_seconds["accumulate"]` records the loop's wall time."""
+        `fit_seconds["accumulate"]` records the loop's wall time, and the
+        spans inside it their seconds (`utils/spans.py`)."""
         self._check_loader(train_loader)
         if override:
             self.loss = 0.0
@@ -500,18 +516,17 @@ class ParametricLaplace(BaseLaplace):
         closure = (self._curv_closure if self.parallel is None
                    else self.parallel.wrap(self._curv_closure))
         self._sync()
-        t0 = time.perf_counter()
-        H = None
-        generator = self._rng(generator)
-        for data in train_loader:
-            X, y = self._unpack_batch(data)
-            loss_b, H_b = closure(self._tensor(X), self._tensor(y), N, generator)
-            self.loss = self.loss + loss_b
-            H = H_b if H is None else H + H_b
-        if H is None:
-            raise RuntimeError("train_loader yielded no batches.")
-        self._sync()
-        self.fit_seconds["accumulate"] = time.perf_counter() - t0
+        with spans.span("accumulate", host_clock=True):
+            H = None
+            generator = self._rng(generator)
+            for data in train_loader:
+                X, y = self._unpack_batch(data)
+                loss_b, H_b = closure(self._tensor(X), self._tensor(y), N, generator)
+                self.loss = self.loss + loss_b
+                H = H_b if H is None else H + H_b
+            if H is None:
+                raise RuntimeError("train_loader yielded no batches.")
+            self._sync()
         self.H = H if override or self.H is None else self.H + H
         self.n_data += N
 
@@ -590,15 +605,16 @@ class ParametricLaplace(BaseLaplace):
         if likelihood == Likelihood.REWARD_MODELING:
             likelihood = Likelihood.CLASSIFICATION if fitting else Likelihood.REGRESSION
         generator = self._rng(generator)
-        if pred_type == PredType.GLM:
-            f_mu, f_var = self._glm_predictive_distribution(
-                x, joint=joint and likelihood == Likelihood.REGRESSION)
-            return self._glm_link_output(f_mu, f_var, likelihood, joint, link_approx,
-                                         n_samples, diagonal_output, generator)
-        samples = self._nn_predictive_samples(x, n_samples, generator)
-        if likelihood == Likelihood.REGRESSION:
-            return samples.mean(0), samples.var(0, unbiased=False)
-        return samples.mean(0)
+        with spans.span("predict.call", device=self.device):
+            if pred_type == PredType.GLM:
+                f_mu, f_var = self._glm_predictive_distribution(
+                    x, joint=joint and likelihood == Likelihood.REGRESSION)
+                return self._glm_link_output(f_mu, f_var, likelihood, joint, link_approx,
+                                             n_samples, diagonal_output, generator)
+            samples = self._nn_predictive_samples(x, n_samples, generator)
+            if likelihood == Likelihood.REGRESSION:
+                return samples.mean(0), samples.var(0, unbiased=False)
+            return samples.mean(0)
 
     @full_f32()
     def functional_samples(self, x, pred_type=PredType.GLM, n_samples: int = 100,
@@ -742,6 +758,8 @@ class KronLaplace(ParametricLaplace):
         """Rescale the 1/N-carrying activation factor A = F[0]."""
         return Kron([(F[0] * factor, F[1]) if len(F) == 2 else F for F in kron.kfacs])
 
+    @_collected
+    @spans.span("fit")
     @full_f32()
     def fit(self, train_loader, override: bool = True,
             generator: torch.Generator | None = None) -> None:
@@ -762,15 +780,14 @@ class KronLaplace(ParametricLaplace):
             self.H_facs = self.H
         else:
             self.H_facs = self.H_facs + self._rescale_factors(self.H, n_new / (n_new + n_old))
-        t0 = time.perf_counter()
-        devices = None if self.parallel is None else self.parallel.mesh
-        H = self.H_facs.decompose(damping=self.damping, devices=devices)
-        if self.parallel is not None:
-            vecs, vals = self.parallel.broadcast((H.eigenvectors, H.eigenvalues))
-            H = KronDecomposed(vecs, vals, damping=self.damping)
-        self.H = H
-        self._sync()
-        self.fit_seconds["decompose"] = time.perf_counter() - t0
+        with spans.span("decompose", host_clock=True):
+            devices = None if self.parallel is None else self.parallel.mesh
+            H = self.H_facs.decompose(damping=self.damping, devices=devices)
+            if self.parallel is not None:
+                vecs, vals = self.parallel.broadcast((H.eigenvectors, H.eigenvalues))
+                H = KronDecomposed(vecs, vals, damping=self.damping)
+            self.H = H
+            self._sync()
 
     def _check_fitted(self):
         if not isinstance(self.H, KronDecomposed):
@@ -824,6 +841,7 @@ class KronLaplace(ParametricLaplace):
             raise AttributeError("Laplace not fitted. Run fit() first.")
         return dict(super().state_dict(), H=self.H_facs)
 
+    @_collected
     @full_f32()
     def load_state_dict(self, state_dict: dict) -> None:
         """Load the factors and decompose them again, as `fit` does (the
@@ -831,10 +849,9 @@ class KronLaplace(ParametricLaplace):
         records the decomposition's wall time."""
         super().load_state_dict(state_dict)
         self.H_facs = self.H
-        t0 = time.perf_counter()
-        self.H = self.H_facs.decompose(damping=self.damping)
-        self._sync()
-        self.fit_seconds["decompose"] = time.perf_counter() - t0
+        with spans.span("decompose", host_clock=True):
+            self.H = self.H_facs.decompose(damping=self.damping)
+            self._sync()
 
 
 class FullLaplace(ParametricLaplace):
@@ -1005,6 +1022,7 @@ class LowRankLaplace(ParametricLaplace):
         (U, eigvals), _ = self.posterior_precision
         return torch.linalg.inv(torch.diag(1.0 / eigvals) + U.T @ self.V)
 
+    @_collected
     @full_f32()
     def fit(self, train_loader, override: bool = True,
             generator: torch.Generator | None = None) -> None:
@@ -1028,12 +1046,11 @@ class LowRankLaplace(ParametricLaplace):
                              f"{y_ndim} dims.")
         self.n_outputs = out.shape[-1]
         self._sync()
-        t0 = time.perf_counter()
-        U, eigvals, loss = self.backend.eig_lowrank(train_loader, self.low_rank, generator,
-                                                    unpack=self._unpack_batch,
-                                                    parallel=self.parallel)
-        self._sync()
-        self.fit_seconds["lanczos"] = time.perf_counter() - t0
+        with spans.span("lanczos", host_clock=True):
+            U, eigvals, loss = self.backend.eig_lowrank(train_loader, self.low_rank, generator,
+                                                        unpack=self._unpack_batch,
+                                                        parallel=self.parallel)
+            self._sync()
         self.H = (U, eigvals)
         self.loss = loss
         self.n_data = dataset_size(train_loader)

@@ -38,6 +38,7 @@ from laplace_jax_torch.curvature.kfac import _sqrt_hessian_cotangents, kfac_fact
 from laplace_jax_torch.enums import Likelihood
 from laplace_jax_torch.nnmodel import batch_len, batch_slice, shape_error
 from laplace_jax_torch.ops.syrk import syrk
+from laplace_jax_torch.utils import spans
 from laplace_jax_torch.utils.flatten import to_flax_layout, vector_to_parameters
 
 __all__ = ["CurvatureBackend", "GGNBackend", "EFBackend", "HessianBackend", "mse_sum",
@@ -113,6 +114,7 @@ class CurvatureBackend:
             return self.last_layer_jacobians(x, create_graph)
         return self.jacobians(x, create_graph)
 
+    @spans.span("predict.features_jacobians")
     def last_layer_jacobians(self, x, create_graph: bool = False):
         """Closed-form Jacobians (batch, outputs, P_ll) of the Dense last
         layer from its features φ: the bias block `I` first, then the
@@ -120,14 +122,15 @@ class CurvatureBackend:
         (reference `backend.py:209-238`); and f (batch, outputs)."""
         if self.last_layer_path is None:
             raise ValueError("last_layer_path not set on backend.")
-        with torch.set_grad_enabled(create_graph):
+        with torch.set_grad_enabled(create_graph), spans.span("predict.forward"):
             f, phi = self.model.apply_with_features(x, self.last_layer_path,
                                                     self.feature_reduction)
-        B, C = f.shape
-        eye = torch.eye(C, dtype=f.dtype, device=f.device)
-        Js = torch.einsum("bi,co->bcio", phi, eye).reshape(B, C, -1)
-        if any(s.path[-1] == "bias" for s in self.model.leaf_specs):
-            Js = torch.cat([eye.expand(B, C, C), Js], dim=2)
+        with spans.span("predict.jacobians"):
+            B, C = f.shape
+            eye = torch.eye(C, dtype=f.dtype, device=f.device)
+            Js = torch.einsum("bi,co->bcio", phi, eye).reshape(B, C, -1)
+            if any(s.path[-1] == "bias" for s in self.model.leaf_specs):
+                Js = torch.cat([eye.expand(B, C, C), Js], dim=2)
         return Js, f
 
     def jacobians(self, x, create_graph: bool = False):
@@ -343,6 +346,7 @@ class CurvatureBackend:
         return self.factor * self.lossfunc(f, y), H
 
     # ---- kron
+    @spans.span("accumulate.batch")
     def kron(self, x, y, N: int, generator: torch.Generator | None = None):
         """KFAC factors of one batch as a `Kron`, with the batch loss; the
         activation factor carries 1/N, so batches add (reference

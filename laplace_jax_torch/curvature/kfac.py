@@ -48,6 +48,7 @@ import torch
 from laplace_jax_torch.enums import Likelihood
 from laplace_jax_torch.nnmodel import batch_len, batch_slice
 from laplace_jax_torch.ops.im2col import im2col
+from laplace_jax_torch.utils import spans
 from laplace_jax_torch.utils.flatten import to_flax_layout
 from laplace_jax_torch.utils.matrix import Kron
 
@@ -183,47 +184,18 @@ def kfac_factors(model, x, y, N: int, likelihood, lossfunc, fisher_type: str = "
     leaves are then that layer's). MC draws come from `generator`."""
     paths = None if last_layer_path is None else {tuple(last_layer_path)}
     with torch.enable_grad():
-        f, taps = model.apply_with_taps(x, paths, norm=unsupported == "block")
+        with spans.span("accumulate.forward"):
+            f, taps = model.apply_with_taps(x, paths, norm=unsupported == "block")
         if not any(t.kind in TAPPED for t in taps):
             raise ValueError("No Dense/Conv layers intercepted for KFAC.")
-        w, cot = sweep_cotangents(f, y, likelihood, fisher_type, num_samples, generator)
-        # every sweep in one batched backward pass w.r.t. the zero offsets
-        swept = [t for t in taps if t.offset is not None]
-        grads = (torch.autograd.grad(f, [t.offset for t in swept], grad_outputs=cot,
-                                     is_grads_batched=True) if swept else ())
+        with spans.span("accumulate.sweeps"):
+            w, cot = sweep_cotangents(f, y, likelihood, fisher_type, num_samples, generator)
+            # every sweep in one batched backward pass w.r.t. the zero offsets
+            swept = [t for t in taps if t.offset is not None]
+            grads = (torch.autograd.grad(f, [t.offset for t in swept], grad_outputs=cot,
+                                         is_grads_batched=True) if swept else ())
 
-    B_facs, B_bias, A_facs, norm_blocks = {}, {}, {}, {}
-    for t, g in zip(swept, grads):
-        if t.path in A_facs or (t.path, "bias") in norm_blocks:  # a layer run twice keeps its first tap
-            continue
-        if t.kind == "norm":
-            gb, gs = norm_sample_grads(t, g)
-            norm_blocks[(t.path, "bias")] = w * torch.einsum("kbc,kbd->cd", gb, gb)
-            norm_blocks[(t.path, "scale")] = w * torch.einsum("kbc,kbd->cd", gs, gs)
-            continue
-        if t.kind == "dense_general":
-            A_facs[t.path] = _gram(t.patches) / (N * t.patches.shape[1])
-            B_facs[t.path] = w * _gram(dg_grad_rows(g, t.spec))
-            if t.spec["g_perm"] != t.spec["g_perm_bias"]:
-                B_bias[t.path] = w * _gram(dg_grad_rows(g, t.spec, for_bias=True))
-            continue
-        if t.kind == "embed":  # one-hot rows: a diagonal Gram of the token counts
-            ids = t.inputs.reshape(-1)
-            counts = torch.zeros(t.spec["num_embeddings"], dtype=f.dtype, device=ids.device)
-            counts.index_add_(0, ids, torch.ones(ids.shape, dtype=f.dtype, device=ids.device))
-            A_facs[t.path] = torch.diag(counts) / (N * max(ids.numel() // t.inputs.shape[0], 1))
-        elif t.kind == "conv":  # (K, B, out, *S) -> rows of `out`
-            g = g.movedim(2, -1)
-            patches = conv_patches(t.inputs.detach(), t.spec)
-            G = t.spec["groups"]
-            if G > 1:  # (group, position) is the weight-sharing axis
-                patches = group_patches(patches, t.spec["kernel_size"], G)
-            a = patches.reshape(-1, patches.shape[-1])
-            A_facs[t.path] = a.T @ a / (N * patches.shape[1] * G)
-        else:  # (B, ..., in): every position between batch and feature is a row
-            a = t.inputs.detach().reshape(-1, t.inputs.shape[-1])
-            A_facs[t.path] = a.T @ a / (N * (a.shape[0] // t.inputs.shape[0]))
-        B_facs[t.path] = w * _gram(g)
+    A_facs, B_facs, B_bias, norm_blocks = _grams(swept, grads, w, N, f.dtype)
 
     first_tap = {}
     for t in taps:
@@ -266,6 +238,45 @@ def kfac_factors(model, x, y, N: int, likelihood, lossfunc, fisher_type: str = "
             "(raise block_max_params if these leaves exceed it), or freeze them via the "
             "trainable mask.")
     return lossfunc(f.detach(), y), Kron(kfacs)
+
+
+@spans.span("accumulate.grams")
+def _grams(swept, grads, w, N: int, dtype) -> tuple:
+    """The A and B Grams of every swept tap (im2col included): ({path: A},
+    {path: B}, {path: a bias's own B}, {(path, role): a norm leaf's block})."""
+    B_facs, B_bias, A_facs, norm_blocks = {}, {}, {}, {}
+    for t, g in zip(swept, grads):
+        if t.path in A_facs or (t.path, "bias") in norm_blocks:  # a layer run twice keeps its first tap
+            continue
+        if t.kind == "norm":
+            gb, gs = norm_sample_grads(t, g)
+            norm_blocks[(t.path, "bias")] = w * torch.einsum("kbc,kbd->cd", gb, gb)
+            norm_blocks[(t.path, "scale")] = w * torch.einsum("kbc,kbd->cd", gs, gs)
+            continue
+        if t.kind == "dense_general":
+            A_facs[t.path] = _gram(t.patches) / (N * t.patches.shape[1])
+            B_facs[t.path] = w * _gram(dg_grad_rows(g, t.spec))
+            if t.spec["g_perm"] != t.spec["g_perm_bias"]:
+                B_bias[t.path] = w * _gram(dg_grad_rows(g, t.spec, for_bias=True))
+            continue
+        if t.kind == "embed":  # one-hot rows: a diagonal Gram of the token counts
+            ids = t.inputs.reshape(-1)
+            counts = torch.zeros(t.spec["num_embeddings"], dtype=dtype, device=ids.device)
+            counts.index_add_(0, ids, torch.ones(ids.shape, dtype=dtype, device=ids.device))
+            A_facs[t.path] = torch.diag(counts) / (N * max(ids.numel() // t.inputs.shape[0], 1))
+        elif t.kind == "conv":  # (K, B, out, *S) -> rows of `out`
+            g = g.movedim(2, -1)
+            patches = conv_patches(t.inputs.detach(), t.spec)
+            G = t.spec["groups"]
+            if G > 1:  # (group, position) is the weight-sharing axis
+                patches = group_patches(patches, t.spec["kernel_size"], G)
+            a = patches.reshape(-1, patches.shape[-1])
+            A_facs[t.path] = a.T @ a / (N * patches.shape[1] * G)
+        else:  # (B, ..., in): every position between batch and feature is a row
+            a = t.inputs.detach().reshape(-1, t.inputs.shape[-1])
+            A_facs[t.path] = a.T @ a / (N * (a.shape[0] // t.inputs.shape[0]))
+        B_facs[t.path] = w * _gram(g)
+    return A_facs, B_facs, B_bias, norm_blocks
 
 
 def exact_leaf_accumulate(model, x, w, cot, specs, diagonal: bool = False) -> dict:

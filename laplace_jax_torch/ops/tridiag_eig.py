@@ -9,7 +9,10 @@ package in float32: a merge solves its secular equation in float64
 (`_merge_level` says why), and the vectors are re-orthonormalized by QR
 where the JAX package uses CholeskyQR2 (`_orthonormalize` says why).
 Everything is batched over the K factors of one size. Python loops take
-the place of the JAX package's `fori_loop`s.
+the place of the JAX package's `fori_loop`s. The spans `decompose.stage2`
+and its `.leaves`, `.merge` (each level) and `.orthonormalize`, and
+`decompose.stage1` and `decompose.back_transform` in `eigh_stack_ts`, time
+the stages (`utils/spans.py`).
 
 `eigh_stack_ts` picks stage 1 as the JAX package does: on CUDA the LATRD
 panel kernel (`ops/latrd.py`) for 512 <= n < 2304 and the symmetric-half
@@ -33,6 +36,7 @@ from laplace_jax_torch.ops.latrd_v2 import tridiagonalize_latrd_v2
 from laplace_jax_torch.ops.latrd_v3 import tridiagonalize_latrd_v3
 from laplace_jax_torch.ops.latrd_v4 import tridiagonalize_latrd_v4
 from laplace_jax_torch.ops.tridiag import apply_q, tridiagonalize
+from laplace_jax_torch.utils import spans
 from laplace_jax_torch.utils.device import full_f32, resolve_device
 
 __all__ = ["tridiag_eigh", "eigh_stack_ts"]
@@ -56,6 +60,7 @@ def _round_robin_schedule(m: int) -> np.ndarray:
     return np.asarray(rounds, dtype=np.int64)
 
 
+@spans.span("decompose.stage2.leaves")
 def _jacobi_eigh(A: torch.Tensor):
     """Batched cyclic Jacobi for small symmetric blocks (B, m, m): each
     tournament round rotates all disjoint pairs of all blocks at once.
@@ -104,6 +109,7 @@ def _suffix_min(x: torch.Tensor) -> torch.Tensor:
     return torch.cummin(x.flip(-1), dim=-1).values.flip(-1)
 
 
+@spans.span("decompose.stage2.merge")
 def _merge_level(D, U, rho, z):
     """One D&C merge: eigendecompose diag(D) + rho z z^T with the children's
     bases folded into U (B, M, M). Returns ascending (lam, U @ G).
@@ -261,6 +267,7 @@ def _merge_level(D, U, rho, z):
     return lam, U_new
 
 
+@spans.span("decompose.stage2.orthonormalize")
 def _orthonormalize(V: torch.Tensor) -> torch.Tensor:
     """Restore orthonormality of f32 eigenvector columns (ascending
     eigenvalues): Householder QR of the columns in descending-eigenvalue
@@ -280,6 +287,7 @@ def _orthonormalize(V: torch.Tensor) -> torch.Tensor:
     return (Q * sign.unsqueeze(-2)).flip(-1)
 
 
+@spans.span("decompose.stage2")
 def tridiag_eigh(d: torch.Tensor, e: torch.Tensor):
     """Eigendecompose a batch of symmetric tridiagonals (Cuppen D&C).
 
@@ -395,6 +403,8 @@ def eigh_stack_ts(stack: torch.Tensor, nb: int = 64, stage1: str = "auto", devic
     impl = _stage1_impl(n, stage1, dev)
     if impl not in STAGE1:
         raise ValueError(f"Unknown stage1 {stage1!r}.")
-    d, e, V, taus = STAGE1[impl](stack, nb=nb)
+    with spans.span("decompose.stage1", device=dev):
+        d, e, V, taus = STAGE1[impl](stack, nb=nb)
     lam, Ut = tridiag_eigh(d, e)
-    return lam, apply_q(V, taus, Ut, nb=nb)
+    with spans.span("decompose.back_transform", device=dev):
+        return lam, apply_q(V, taus, Ut, nb=nb)

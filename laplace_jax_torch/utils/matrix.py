@@ -17,7 +17,9 @@ bad factor takes the `symeig` jitter retry, and `SYMEIG_RETRIES` counts
 those factors, so an eigensolver that returns NaN cannot hide behind the
 retry. `decompose(devices=[...])` spreads the factors over several devices
 (largest first, to the least-loaded), as the JAX package's multi-device
-decompose does.
+decompose does. The spans `decompose.class` (a stack), `decompose.eigh`
+(`torch.linalg.eigh`), `decompose.flags` (the flag read and the retries)
+and the counter `decompose.retries` time and count it (`utils/spans.py`).
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import torch
 
 from laplace_jax_torch.ops.eigh_dc import eigh_pooled_dc
 from laplace_jax_torch.ops.tridiag_eig import eigh_stack_ts
+from laplace_jax_torch.utils import spans
 from laplace_jax_torch.utils.device import full_f32
 from laplace_jax_torch.utils.linalg import block_diag, kron, symeig
 
@@ -79,10 +82,13 @@ def _clip_flags(l: torch.Tensor, Q: torch.Tensor):
 
 def _batched_eigh_clipped(stack: torch.Tensor):
     """Eigendecompose a (k, n, n) stack, as `_clip_flags` returns it."""
-    stack = (stack + stack.mT) / 2
-    if _use_ts(stack):
-        return _clip_flags(*eigh_stack_ts(stack, device=stack.device))
-    return _clip_flags(*torch.linalg.eigh(stack))
+    with spans.span("decompose.class", device=stack.device):
+        stack = (stack + stack.mT) / 2
+        if _use_ts(stack):
+            return _clip_flags(*eigh_stack_ts(stack, device=stack.device))
+        with spans.span("decompose.eigh"):
+            l, Q = torch.linalg.eigh(stack)
+        return _clip_flags(l, Q)
 
 
 def _device_list(devices) -> list:
@@ -252,11 +258,13 @@ class Kron:
             for j, key in enumerate(keys):
                 results[key] = (ls[j], Qs[j])
             flag_keys.extend(keys)
-        flags = torch.cat([f.to(first) for *_, f in pending]).tolist()  # the one read
-        for (gi, fi), bad in zip(flag_keys, flags):
-            if bad:
-                SYMEIG_RETRIES += 1
-                results[(gi, fi)] = symeig(self.kfacs[gi][fi].to(first))
+        with spans.span("decompose.flags", device=first):
+            flags = torch.cat([f.to(first) for *_, f in pending]).tolist()  # the one read
+            for (gi, fi), bad in zip(flag_keys, flags):
+                if bad:
+                    SYMEIG_RETRIES += 1
+                    spans.count("decompose.retries")
+                    results[(gi, fi)] = symeig(self.kfacs[gi][fi].to(first))
         eigvecs = [tuple(results[(gi, fi)][1] for fi in range(len(F)))
                    for gi, F in enumerate(self.kfacs)]
         eigvals = [tuple(results[(gi, fi)][0] for fi in range(len(F)))
@@ -369,6 +377,7 @@ class KronDecomposed:
             return self._bmm(W, exponent)
         raise ValueError("Invalid shape for W")
 
+    @spans.span("predict.variance")
     def inv_square_form(self, W: torch.Tensor) -> torch.Tensor:
         """`W H^{-1} W^T` batched over the leading axis."""
         return torch.einsum("bkp,blp->bkl", W, self._bmm(W, exponent=-1))
