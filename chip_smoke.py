@@ -34,6 +34,13 @@ Phases, each printing one JSON line; any failed check exits non-zero:
              (1280, 5130) and at (1280, 5131) (P odd: 4-byte copies) in
              float32, and at (1280, 5130) and (37, 130) in float64, each
              timed; its ptxas registers and spills, its bound fraction;
+   leaves  - stage 2's Jacobi leaves kernel (`csrc/jacobi_leaves.cu`, one
+             launch a `tridiag_eigh`) at each main-path class's leaves
+             (96x32, 80x36, 128x36, 256x36, 384x36, float32) against its
+             plain version (eigenvalues, `||A V - V L|| / ||A||` and
+             `||V^T V - I||` within 4 times the plain version's own, plus
+             16 ulps), timed beside the plain version, `torch.linalg.eigh`
+             on the same stack and the bound;
 4. reference - width-8 ResNet-18 fits in float64 on the card against the
              same fits on the CPU: all-weights KFAC (its 576 class runs the
              v1 kernel; LAPACK on the CPU) and last-layer Full (the float64
@@ -45,7 +52,8 @@ Phases, each printing one JSON line; any failed check exits non-zero:
              (width 64, 10 classes, 11.16M weights) over 512 CIFAR-10-shaped
              inputs in batches of 128, marglik prior tuning, and the GLM
              probit predictive on 8 inputs, with both LATRD kernels' launch
-             counts read from this run (35 v1, 108 v4) and every panel it
+             counts read from this run (35 v1, 108 v4), the Jacobi leaves'
+             (5: one a factor class n >= 512) and every panel it
              launched tallied by (K, m, off); the TF32 switches must read
              as they did before the fit (the port scopes its own);
    windows - each panel the main path launched, on a random window of its
@@ -226,7 +234,8 @@ Then the kernel summary line (with `main_path_ms`, `route_ms`,
 `stream_bound_ms` and v2's `ms_3x4608` where measured, and
 `launches_by_path`: each kernel's launches on the parallel,
 marglik_training, regression, subnet, reward, backends, transformer,
-conv_variants and serialization paths), the
+conv_variants and serialization paths; the leaves' on each but parallel,
+whose ranks run in processes of their own), the
 `nvidia-smi` line, and last
 `{"ok": true, "device": {...}}`. Without a CUDA device, or outside the
 repository checkout, it exits non-zero and prints no result.
@@ -291,6 +300,9 @@ KERNELS = [  # (name, module, stage-1 driver and name, source, TPU kernel replac
 # kernels whose two launches agree bit for bit
 BITWISE = {"latrd_panel_v3", "latrd_panel", "latrd_panel_v2"}
 MAIN_LAUNCHES = {"latrd_panel": 35, "latrd_panel_v4": 108}  # panels of one all-weights fit
+LEAF_LAUNCHES = 5  # the Jacobi leaves' launches of that fit: one a class n >= 512
+# the main path's stage-2 leaves, (leaves, m) a class: 512, 576, 1152, 2304, 4608
+LEAF_SHAPES = [(96, 32), (80, 36), (128, 36), (256, 36), (384, 36)]
 
 
 def emit(obj) -> None:
@@ -538,6 +550,83 @@ def more_shapes(name, kernel, plain, shapes, nb, gen, device):
         check(rel <= tol, f"{name} {dt} ({K}, {n}): relative error {rel:.3e} > {tol}")
         del A, got, again, ref
     return out
+
+
+class LeafCount:
+    """The Jacobi leaves kernel's launches inside a `with` block (`n`)."""
+
+    def __enter__(self):
+        from laplace_jax_torch.ops.tridiag_eig import _jacobi_eigh
+
+        self.kernel, self.n0 = _jacobi_eigh, _jacobi_eigh.launches
+        return self
+
+    def __exit__(self, *exc):
+        self.n = self.kernel.launches - self.n0
+        return False
+
+
+def leaf_bound_ms(B: int, m: int, itemsize: int, flops_peak: float, sweeps: int):
+    """Least time for one leaves launch: A read once, vals and vecs written
+    once, against the rotations (9 mp^2 flops a round: 6 an entry of A, 3
+    of V)."""
+    mp = m + m % 2
+    t_bytes = B * (2 * m * m + m) * itemsize / HBM_BYTES_PER_S
+    t_ops = B * sweeps * (mp - 1) * 9 * mp * mp / flops_peak
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def leaf_levels(A, vals, vecs):
+    """Worst eigenvalue gap to eigvalsh, ||A V - V L|| / ||A|| and
+    ||V^T V - I|| over the leaves, in float64."""
+    import torch
+
+    A, vals, vecs = A.double(), vals.double(), vecs.double()
+    scale = A.flatten(1).norm(dim=1)
+    eig = (vals - torch.linalg.eigvalsh(A)).abs().amax(1) / scale
+    resid = (A @ vecs - vecs * vals[:, None, :]).flatten(1).norm(dim=1) / scale
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+    orth = (vecs.mT @ vecs - eye).flatten(1).norm(dim=1)
+    return dict(eig=float(eig.max()), resid=float(resid.max()), orth=float(orth.max()))
+
+
+def leaves_phase(seed, device):
+    """Stage 2's Jacobi leaves kernel at the main path's leaf stacks,
+    float32: against its plain version and timed (the kernel summary's
+    `jacobi_leaves` row)."""
+    import torch
+
+    from laplace_jax_torch.ops.tridiag_eig import JACOBI_SWEEPS, _jacobi_eigh, _jacobi_eigh_plain
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    eps = torch.finfo(torch.float32).eps
+    by_class, worst = {}, 0.0
+    for B, m in LEAF_SHAPES:
+        X = torch.randn(B, m, m, generator=gen, device=device)
+        A = (X + X.mT) / 2
+        got, ref = _jacobi_eigh(A), _jacobi_eigh_plain(A)
+        torch.cuda.synchronize()
+        lv, lv_plain = leaf_levels(A, *got), leaf_levels(A, *ref)
+        for key in lv:
+            check(lv[key] <= 4 * lv_plain[key] + 16 * eps,
+                  f"Jacobi leaves ({B}, {m}): {key} {lv[key]:.3e} against plain {lv_plain[key]:.3e}")
+        worst = max(worst, float((got[0] - ref[0]).abs().max()))
+        bound_ms, bound_by = leaf_bound_ms(B, m, 4, F32_FLOPS, JACOBI_SWEEPS)
+        by_class[f"{B}x{m}"] = dict(ms=cuda_ms(lambda: _jacobi_eigh(A), reps=20),
+                                    plain_ms=cuda_ms(lambda: _jacobi_eigh_plain(A), reps=1),
+                                    library_ms=cuda_ms(lambda: torch.linalg.eigh(A), reps=5),
+                                    bound_ms=bound_ms, bound_by=bound_by, levels=lv,
+                                    plain_levels=lv_plain)
+    total = {k: sum(c[k] for c in by_class.values()) for k in ("ms", "plain_ms", "bound_ms")}
+    row = dict(name="jacobi_leaves", route="cuda", source="laplace_jax_torch/csrc/jacobi_leaves.cu",
+               replaces="none (laplace_jax/ops/tridiag_eig.py:_jacobi_eigh, jnp code)",
+               max_abs_err=worst, ms=by_class["384x36"]["ms"], plain_ms=by_class["384x36"]["plain_ms"],
+               bound_ms=by_class["384x36"]["bound_ms"], bound_by=by_class["384x36"]["bound_by"],
+               library_ms=by_class["384x36"]["library_ms"], main_path_ms=total["ms"],
+               main_path_plain_ms=total["plain_ms"], main_path_bound_ms=total["bound_ms"],
+               by_class=by_class, dtype="float32")
+    emit(dict(phase="leaves", **row))
+    return row
 
 
 def syrk_bound_ms(R: int, P: int, itemsize: int, flops_peak: float):
@@ -818,7 +907,7 @@ def main_path(seed, device, keep):
     zero_launches()
     retries0 = matrix.SYMEIG_RETRIES
     flags0 = tf32_flags()
-    with PanelTally() as tally:
+    with PanelTally() as tally, LeafCount() as leaves:
         timed(res, "fit_s", lambda: la.fit(loader))
     flags_after_fit = tf32_flags()
     launches = kernel_launches(*MAIN_LAUNCHES)
@@ -836,7 +925,8 @@ def main_path(seed, device, keep):
 
     res.update(n_params=la.n_params,
                accumulate_s=la.fit_seconds["accumulate"], decompose_s=la.fit_seconds["decompose"],
-               launches=launches, symeig_retries=retries, factor_sizes=sizes,
+               launches=launches, leaf_launches=leaves.n, symeig_retries=retries,
+               factor_sizes=sizes,
                eig_rel_err_vs_eigh=worst, log_marglik=lml,
                prior_precision=pp, predictive_shape=list(probs.shape),
                predictive_row_sum_err=row_err, tf32_flags_before=flags0,
@@ -846,6 +936,8 @@ def main_path(seed, device, keep):
     res["panels"] = tally.counts
     check(la.n_params == 11_164_362, f"ResNet-18 has {la.n_params} weights, not 11164362")
     check(launches == MAIN_LAUNCHES, f"main-path launches {launches}, not {MAIN_LAUNCHES}")
+    check(leaves.n == LEAF_LAUNCHES,
+          f"main path launched the Jacobi leaves {leaves.n} times, not {LEAF_LAUNCHES}")
     check(flags_after_fit == flags0 and flags_after == flags0,
           f"TF32 switches {flags0} read {flags_after_fit} after the fit, {flags_after} at the end")
     check(all(sum(tally.counts[k].values()) == n for k, n in launches.items()),
@@ -3639,6 +3731,7 @@ def main() -> None:
         return
     rows = [kernel_phase(*row, args.seed, device) for row in KERNELS]
     rows.append(syrk_phase(args.seed, device, _build.build_log("syrk")))
+    rows.append(leaves_phase(args.seed, device))
     reference_phase(args.seed, device)
     # each kernel's launches from the path that runs it: v1 and v4 from the
     # all-weights main path, syrk from the last-layer FullLL fit, v3 and v2
@@ -3649,7 +3742,7 @@ def main() -> None:
     # one rank's launches in one data-parallel fit of the main path (v1, v4)
     # and of its last layer (syrk)
     parallel_launches = parallel_phase(args.seed, device, smi, main, keep)
-    launches = dict(main["launches"])
+    launches = dict(main["launches"], jacobi_leaves=main["leaf_launches"])
     ll_launches, full_syrk_ms = last_layer_phase(args.seed, device, keep)
     launches.update(ll_launches)
     next(r for r in rows if r["name"] == "syrk")["main_path_ms"] = full_syrk_ms
@@ -3659,32 +3752,46 @@ def main() -> None:
     # the SBR op chain on the main path's factor classes, then the examples
     sbr_phase(device, smi, keep)
     examples_phase(device, smi)
+    # the Jacobi leaves' launches on each path of this process, by phase
+    leaves = {}
+
+    def on_path(path, phase, *a):
+        with LeafCount() as c:
+            out = phase(*a)
+        leaves[path] = c.n
+        return out
+
     # the marglik-training and regression paths, each read from its own run
     by_path = {"parallel": parallel_launches,
-               "marglik_training": marglik_training_phase(args.seed, device, smi),
-               "regression": regression_phase(args.seed, device, smi)}
+               "marglik_training": on_path("marglik_training", marglik_training_phase,
+                                           args.seed, device, smi),
+               "regression": on_path("regression", regression_phase, args.seed, device, smi)}
     # the GP path launches no kernel; the subnet path launches syrk once a batch
     functional_phase(args.seed, device, smi, keep)
-    by_path["subnet"], syrk_640x128 = subnet_phase(args.seed, device, smi, keep)
+    by_path["subnet"], syrk_640x128 = on_path("subnet", subnet_phase, args.seed, device, smi, keep)
     next(r for r in rows if r["name"] == "syrk")["at_640x128"] = syrk_640x128
     # the reward head's FullLL launches syrk once a batch; loading the
     # all-weights Kron decomposes it again through v1 and v4
-    by_path["reward"], syrk_128x514 = reward_phase(args.seed, device, smi, keep)
+    by_path["reward"], syrk_128x514 = on_path("reward", reward_phase, args.seed, device, smi, keep)
     next(r for r in rows if r["name"] == "syrk")["at_128x514"] = syrk_128x514
     # EF and MC Kron on ResNet-18 and the block Kron on WRN-16-4 launch v1 and v4
-    by_path["backends"] = backends_phase(args.seed, device, smi)
+    by_path["backends"] = on_path("backends", backends_phase, args.seed, device, smi)
     # the reward transformer with all its weights: v1 on its 1024 class, v4
     # on the Embed's diagonal 4096 factor
-    by_path["transformer"] = transformer_phase(args.seed, device, smi)
+    by_path["transformer"] = on_path("transformer", transformer_phase, args.seed, device, smi)
     # the conv variants: v1 on their 512-1152 classes, v4 on the grouped
     # conv's 2304 class, syrk on the batch-coupled model's FullLaplace
-    by_path["conv_variants"] = conv_variants_phase(args.seed, device, smi)
-    by_path["serialization"] = serialization_phase(keep, device, smi, main["decompose_s"])
+    by_path["conv_variants"] = on_path("conv_variants", conv_variants_phase, args.seed, device,
+                                       smi)
+    by_path["serialization"] = on_path("serialization", serialization_phase, keep, device, smi,
+                                       main["decompose_s"])
+    by_path = {p: dict(n, jacobi_leaves=leaves[p]) if p in leaves else n
+               for p, n in by_path.items()}
 
     keys = ("name", "route", "source", "replaces", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     extra = ("main_path_ms", "route_ms", "stream_bound_ms", "ms_3x4608", "at_640x128",
-             "at_128x514")
+             "at_128x514", "main_path_plain_ms", "main_path_bound_ms", "by_class")
     print(json.dumps({"kernels": [dict({k: r[k] for k in keys}, launches=launches[r["name"]],
                                        **{k: r[k] for k in extra if k in r},
                                        launches_by_path={p: n[r["name"]] for p, n in by_path.items()

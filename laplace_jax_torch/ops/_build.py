@@ -47,6 +47,8 @@ _PANEL_ROWS_LIB = {"panel_f32": _PANEL_ROWS, "panel_f64": _PANEL_ROWS,
 _SYRK = (_I, [_P, _P, _I, _I, _P])  # A, H, R, P, stream
 # syrk_geometry(itemsize, P, int out[7]): the launch geometry (ops/syrk.syrk_plan)
 _SYRK_GEOMETRY = (_I, [_I, _I, ctypes.POINTER(_I)])
+# A, vals, vecs, B, m, sweeps, stream (ops/tridiag_eig._jacobi_eigh)
+_LEAVES = (_I, [_P, _P, _P, _I, _I, _I, _P])
 # each source's C entry points, as (result type, argument types); every
 # library also exports `error_string(int)`
 SIGNATURES = {
@@ -55,6 +57,7 @@ SIGNATURES = {
     "latrd_v3": _PANEL_V3_LIB,
     "latrd_v2": _PANEL_ROWS_LIB,
     "syrk": {"syrk_f32": _SYRK, "syrk_f64": _SYRK, "syrk_geometry": _SYRK_GEOMETRY},
+    "jacobi_leaves": {"jacobi_leaves_f32": _LEAVES, "jacobi_leaves_f64": _LEAVES},
 }
 SOURCES = tuple(SIGNATURES)
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

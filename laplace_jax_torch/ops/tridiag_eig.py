@@ -9,10 +9,13 @@ package in float32: a merge solves its secular equation in float64
 (`_merge_level` says why), and the vectors are re-orthonormalized by QR
 where the JAX package uses CholeskyQR2 (`_orthonormalize` says why).
 Everything is batched over the K factors of one size. Python loops take
-the place of the JAX package's `fori_loop`s. The spans `decompose.stage2`
-and its `.leaves`, `.merge` (each level) and `.orthonormalize`, and
-`decompose.stage1` and `decompose.back_transform` in `eigh_stack_ts`, time
-the stages (`utils/spans.py`).
+the place of the JAX package's `fori_loop`s; on CUDA the Jacobi leaves are
+one launch of `csrc/jacobi_leaves.cu` a call instead (`_jacobi_eigh`). The
+spans `decompose.stage2` and its `.leaves`, `.merge` (each level) and
+`.orthonormalize`, and `decompose.stage1` and `decompose.back_transform` in
+`eigh_stack_ts`, time the stages, and the counter
+`decompose.stage2.leaf_launches` counts the leaves' launches
+(`utils/spans.py`).
 
 `eigh_stack_ts` picks stage 1 as the JAX package does: on CUDA the LATRD
 panel kernel (`ops/latrd.py`) for 512 <= n < 2304 and the symmetric-half
@@ -31,6 +34,7 @@ import os
 import numpy as np
 import torch
 
+from laplace_jax_torch.ops import _build
 from laplace_jax_torch.ops.latrd import tridiagonalize_latrd
 from laplace_jax_torch.ops.latrd_v2 import tridiagonalize_latrd_v2
 from laplace_jax_torch.ops.latrd_v3 import tridiagonalize_latrd_v3
@@ -60,11 +64,59 @@ def _round_robin_schedule(m: int) -> np.ndarray:
     return np.asarray(rounds, dtype=np.int64)
 
 
+def _round_robin_pair(m: int, r: int, i: int) -> tuple:
+    """Slot i of round r of `_round_robin_schedule(m)` in closed form, as
+    the leaves' kernel (`csrc/jacobi_leaves.cu`, `pair_of`) computes it:
+    player 0 stays, the others turn one place a round."""
+    n = m - 1
+    a = 0 if i == 0 else 1 + (i - 1 - r) % n
+    b = 1 + (n - 1 - i - r) % n
+    return min(a, b), max(a, b)
+
+
 @spans.span("decompose.stage2.leaves")
 def _jacobi_eigh(A: torch.Tensor):
-    """Batched cyclic Jacobi for small symmetric blocks (B, m, m): each
-    tournament round rotates all disjoint pairs of all blocks at once.
-    Returns ascending (vals (B, m), vecs (B, m, m))."""
+    """Eigendecompose small symmetric blocks A (B, m, m), m <= `BASE_SIZE`:
+    ascending (vals (B, m), vecs (B, m, m)). On a CUDA tensor one launch of
+    `csrc/jacobi_leaves.cu` (a block per leaf, every sweep in shared
+    memory); on a CPU tensor `_jacobi_eigh_plain`. A CUDA tensor the kernel
+    does not take raises. `_jacobi_eigh.launches` counts the launches, and
+    the counter `decompose.stage2.leaf_launches` too while recording."""
+    if A.device.type == "cpu":
+        return _jacobi_eigh_plain(A)
+    if A.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"Jacobi leaves kernel takes float32/float64, got {A.dtype}")
+    if A.ndim != 3 or A.shape[1] != A.shape[2] or not A.is_contiguous():
+        raise ValueError(f"Jacobi leaves kernel takes a contiguous (B, m, m) stack, got "
+                         f"{tuple(A.shape)} contiguous={A.is_contiguous()}")
+    B, m, _ = A.shape
+    if m > BASE_SIZE or B >= 2**31:
+        raise ValueError(f"Jacobi leaves kernel takes m <= {BASE_SIZE} and B < 2**31, "
+                         f"got {tuple(A.shape)}")
+    if m == 1:
+        return A[:, :, 0], torch.ones(B, 1, 1, dtype=A.dtype, device=A.device)
+    vals = torch.empty(B, m, dtype=A.dtype, device=A.device)
+    vecs = torch.empty(B, m, m, dtype=A.dtype, device=A.device)
+    if B == 0:
+        return vals, vecs
+    lib = _build.load("jacobi_leaves")
+    fn = lib.jacobi_leaves_f32 if A.dtype == torch.float32 else lib.jacobi_leaves_f64
+    rc = fn(A.data_ptr(), vals.data_ptr(), vecs.data_ptr(), B, m, JACOBI_SWEEPS,
+            torch.cuda.current_stream(A.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"Jacobi leaves launch failed: {lib.error_string(rc).decode()}")
+    _jacobi_eigh.launches += 1
+    spans.count("decompose.stage2.leaf_launches")
+    return vals, vecs
+
+
+_jacobi_eigh.launches = 0
+
+
+def _jacobi_eigh_plain(A: torch.Tensor):
+    """Batched cyclic Jacobi for small symmetric blocks (B, m, m) in plain
+    PyTorch: each tournament round rotates all disjoint pairs of all blocks
+    at once. Returns ascending (vals (B, m), vecs (B, m, m))."""
     B, m, _ = A.shape
     dtype, dev = A.dtype, A.device
     if m == 1:

@@ -1,5 +1,5 @@
-"""The CUDA kernels (LATRD panels v1, v2, v3, v4, syrk) against their plain
-PyTorch versions, and the pooled spectral D&C, on the card.
+"""The CUDA kernels (LATRD panels v1, v2, v3, v4, syrk, the Jacobi leaves)
+against their plain PyTorch versions, and the pooled spectral D&C, on the card.
 
 These tests need a CUDA device (the kernels have no CPU mode) and skip
 without one. Run them on a machine with the card:
@@ -15,6 +15,13 @@ run to run; v3 sums in one fixed order and repeats bitwise) and 1e-4 for
 syrk (order over up to 1280 rows). syrk is held at every P mod 4 (its
 copy width), at an unaligned address, bitwise over two launches, and its
 launch geometry against `ops/syrk.syrk_plan`.
+
+Stage 2's Jacobi leaves (`csrc/jacobi_leaves.cu`, one launch a call) are
+held against their plain version in both dtypes at m from 2 to 48 and up
+to 384 leaves, on diagonal and tied inputs, on the leaves of
+`tests/data/stage2_float32_tridiagonal.npz` and with a NaN: eigenvalues,
+‖A V − V Λ‖ / ‖A‖ and ‖VᵀV − I‖ each within 4 times the plain version's
+own level over the leaves (plus 16 ulps).
 
 The v4 panel is one cooperative launch per panel with a tile schedule from
 `ops/latrd_v4.panel_plan`; it is held against its plain version at every
@@ -883,3 +890,158 @@ def test_sbr_chain_on_card_matches_cpu(cuda):
     torch.testing.assert_close(Q @ torch.diag_embed(lam) @ Q.mT, A, atol=1e-10 * scale, rtol=0)
     torch.testing.assert_close(Q.mT @ Q, torch.eye(96, dtype=A.dtype).expand(2, 96, 96),
                                atol=1e-10, rtol=0)
+
+
+# stage 2's Jacobi leaves (`csrc/jacobi_leaves.cu`) against their plain
+# version on the card: the same rotations in the same order, so each
+# reading lies within a small multiple of the plain version's own
+LEAF_SHAPES = [(2, 64), (5, 64), (31, 96), (32, 96), (36, 384), (47, 64), (48, 80)]
+
+
+def _leaf_levels(A, vals, vecs):
+    """Eigenvalue gap to eigvalsh, ‖A V − V Λ‖ / ‖A‖ and ‖VᵀV − I‖ per leaf,
+    in float64."""
+    A, vals, vecs = A.double(), vals.double(), vecs.double()
+    ref = torch.linalg.eigvalsh(A)
+    scale = A.flatten(1).norm(dim=1).clamp(min=1e-300)
+    eig = (vals - ref).abs().amax(1) / scale
+    resid = (A @ vecs - vecs * vals[:, None, :]).flatten(1).norm(dim=1) / scale
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+    orth = (vecs.mT @ vecs - eye).flatten(1).norm(dim=1)
+    return eig, resid, orth
+
+
+def _hold_leaves_to_plain(A):
+    from laplace_jax_torch.ops import tridiag_eig as te
+
+    n0 = te._jacobi_eigh.launches
+    got = te._jacobi_eigh(A)
+    ref = te._jacobi_eigh_plain(A)
+    torch.cuda.synchronize()
+    assert te._jacobi_eigh.launches == n0 + 1
+    assert got[0].shape == ref[0].shape and got[1].shape == ref[1].shape
+    assert got[0].dtype == got[1].dtype == A.dtype
+    eps = torch.finfo(A.dtype).eps
+    for name, g, r in zip(("eig", "resid", "orth"), _leaf_levels(A, *got), _leaf_levels(A, *ref)):
+        g, r = float(g.max()), float(r.max())
+        assert g <= 4 * r + 16 * eps, (name, g, r)
+    return got, ref
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["float32", "float64"])
+@pytest.mark.parametrize("m,B", LEAF_SHAPES, ids=[f"m{m}-B{B}" for m, B in LEAF_SHAPES])
+def test_jacobi_leaves_match_plain(cuda, m, B, dtype):
+    X = np.random.default_rng(1000 + m).standard_normal((B, m, m))
+    A = torch.as_tensor((X + X.transpose(0, 2, 1)) / 2, dtype=dtype, device=cuda)
+    _hold_leaves_to_plain(A)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["float32", "float64"])
+def test_jacobi_leaves_on_diagonal_and_tied_inputs(cuda, dtype):
+    """A diagonal leaf (every apq under `tiny`: no rotation) comes out as
+    its sorted diagonal and a permutation, ties by index, exactly as the
+    plain version; leaves with tied eigenvalues (Q diag(λ) Qᵀ, λ in pairs
+    and triples) as close as the plain version."""
+    from laplace_jax_torch.ops.tridiag_eig import _jacobi_eigh
+
+    rng = np.random.default_rng(7)
+    diag = np.round(rng.standard_normal((16, 36)), 1)  # rounded: many ties
+    D = torch.diag_embed(torch.as_tensor(diag, dtype=dtype, device=cuda))
+    vals, vecs = _jacobi_eigh(D)
+    order = torch.argsort(D.diagonal(dim1=1, dim2=2).cpu(), dim=1, stable=True)
+    assert torch.equal(vals.cpu(), torch.gather(D.diagonal(dim1=1, dim2=2).cpu(), 1, order))
+    eye = torch.eye(36, dtype=dtype).expand(16, 36, 36)
+    assert torch.equal(vecs.cpu(), torch.gather(eye, 2, order[:, None, :].expand(16, 36, 36)))
+
+    lam = np.repeat(rng.standard_normal((32, 12)), 3, axis=1)  # each eigenvalue three times
+    Q = np.linalg.qr(rng.standard_normal((32, 36, 36)))[0]
+    T = np.einsum("bij,bj,bkj->bik", Q, lam, Q)
+    _hold_leaves_to_plain(torch.as_tensor((T + T.transpose(0, 2, 1)) / 2, dtype=dtype,
+                                          device=cuda))
+
+
+def test_jacobi_leaves_on_the_stage2_data(cuda):
+    """The leaves that `tridiag_eigh` builds from the float32 tridiagonal of
+    `tests/data/stage2_float32_tridiagonal.npz` (n = 2304: 64 leaves of 36,
+    with their Cuppen corrections), kernel against plain."""
+    from pathlib import Path
+
+    from laplace_jax_torch.ops import tridiag_eig as te
+
+    data = np.load(Path(__file__).parent / "data" / "stage2_float32_tridiagonal.npz")
+    d = torch.as_tensor(data["d"], device=cuda)[None]
+    e = torch.as_tensor(data["e"], device=cuda)[None]
+    seen = []
+    real = te._jacobi_eigh
+
+    def record(T):
+        seen.append(T.clone())
+        return te._jacobi_eigh_plain(T)
+
+    te._jacobi_eigh = record
+    try:
+        te.tridiag_eigh(d, e)
+    finally:
+        te._jacobi_eigh = real
+    assert len(seen) == 1 and tuple(seen[0].shape) == (64, 36, 36)
+    _hold_leaves_to_plain(seen[0])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["float32", "float64"])
+def test_jacobi_leaves_carry_a_nan_to_the_flags(cuda, dtype):
+    """A NaN in a leaf reaches that leaf's eigenvalues, which
+    `utils/matrix._clip_flags` reads, sorted last (any numbers first, in
+    order), and no other leaf: the others come out bit for bit as without
+    it."""
+    from laplace_jax_torch.ops.tridiag_eig import _jacobi_eigh
+
+    X = np.random.default_rng(3).standard_normal((4, 36, 36))
+    A = torch.as_tensor((X + X.transpose(0, 2, 1)) / 2, dtype=dtype, device=cuda)
+    clean = _jacobi_eigh(A)
+    A[2, 4, 17] = A[2, 17, 4] = float("nan")
+    vals, vecs = _jacobi_eigh(A)
+    nan = vals[2].isnan()
+    assert bool(nan.any())
+    num = vals[2, :int((~nan).sum())]
+    assert not bool(num.isnan().any())  # the NaNs last
+    assert bool((num[1:] >= num[:-1]).all())
+    keep = [0, 1, 3]
+    assert torch.equal(vals[keep], clean[0][keep]) and torch.equal(vecs[keep], clean[1][keep])
+
+
+def test_tridiag_eigh_launches_the_leaves_once_without_a_sync(cuda):
+    """Stage 2 of a (3, 4608) tridiagonal on the card: one launch of the
+    leaves' kernel (384 leaves of 36), counted by the wrapper and by the
+    counter `decompose.stage2.leaf_launches`, and no host sync inside the
+    span `decompose.stage2.leaves`."""
+    from laplace_jax_torch.ops import tridiag_eig as te
+    from laplace_jax_torch.utils import spans
+
+    rng = np.random.default_rng(4608)
+    d = torch.as_tensor(rng.standard_normal((3, 4608)), dtype=torch.float32, device=cuda)
+    e = torch.as_tensor(rng.standard_normal((3, 4607)), dtype=torch.float32, device=cuda)
+    te.tridiag_eigh(d, e)  # loads the library
+    torch.cuda.synchronize()
+    n0 = te._jacobi_eigh.launches
+    spans.reset()
+    with spans.recording():
+        lam, U = te.tridiag_eigh(d, e)
+        torch.cuda.synchronize()
+    s = spans.summary()
+    spans.reset()
+    assert te._jacobi_eigh.launches == n0 + 1
+    assert s["counters"]["decompose.stage2.leaf_launches"] == 1
+    assert s["spans"]["decompose.stage2.leaves"]["count"] == 1
+    assert s["spans"]["decompose.stage2.leaves"]["syncs"] == 0
+    assert bool(lam.isfinite().all()) and bool((lam[:, 1:] >= lam[:, :-1]).all())
+
+
+def test_jacobi_leaves_reject_what_the_kernel_does_not_take(cuda):
+    from laplace_jax_torch.ops.tridiag_eig import _jacobi_eigh
+
+    with pytest.raises(ValueError):
+        _jacobi_eigh(torch.zeros(2, 49, 49, device=cuda))
+    with pytest.raises(ValueError):
+        _jacobi_eigh(torch.zeros(2, 36, 72, device=cuda)[:, :, :36])
+    with pytest.raises(TypeError):
+        _jacobi_eigh(torch.zeros(2, 36, 36, dtype=torch.int32, device=cuda))

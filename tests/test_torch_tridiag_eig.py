@@ -16,7 +16,12 @@ import torch
 
 from laplace_jax.ops.tridiag_eig import eigh_stack_ts as jax_eigh_stack_ts
 from laplace_jax.ops.tridiag_eig import tridiag_eigh as jax_tridiag_eigh
-from laplace_jax_torch.ops.tridiag_eig import eigh_stack_ts, tridiag_eigh
+from laplace_jax_torch.ops.tridiag_eig import (
+    _round_robin_pair,
+    _round_robin_schedule,
+    eigh_stack_ts,
+    tridiag_eigh,
+)
 from laplace_jax_torch.utils import matrix
 from laplace_jax_torch.utils.matrix import Kron
 
@@ -43,6 +48,19 @@ def _check_pairs(A, lam, vecs, lam_ref, tol):
     assert float((rec - A).norm() / A.norm()) < 1e3 * tol
     eye = torch.eye(A.shape[-1], dtype=A.dtype)
     assert float((vecs.mT @ vecs - eye).abs().max()) < 1e3 * tol
+
+
+@pytest.mark.parametrize("m", range(2, 50, 2))
+def test_closed_form_pairs_are_the_round_robin_schedule(m):
+    """The leaves' kernel computes its pairs from (round, slot) with the
+    formula of `_round_robin_pair`: the plain schedule's pairs, slot for
+    slot; each pair once over the rounds, disjoint within a round."""
+    sched = _round_robin_schedule(m)
+    got = [[_round_robin_pair(m, r, i) for i in range(m // 2)] for r in range(m - 1)]
+    assert got == [[tuple(map(int, pq)) for pq in rnd] for rnd in sched]
+    pairs = [pq for rnd in got for pq in rnd]
+    assert len(set(pairs)) == len(pairs) == m * (m - 1) // 2
+    assert all(len({x for pq in rnd for x in pq}) == m for rnd in got)
 
 
 @pytest.mark.parametrize("n", [40, 130])
