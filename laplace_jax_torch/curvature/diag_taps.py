@@ -178,12 +178,15 @@ def _shared_weight_diag(t, g: torch.Tensor, chunk_bytes: int):
 
 
 def _check_covered(model, taps) -> None:
-    """Raise `TapUnsupported` unless each layer is tapped once and every
-    leaf belongs to a tapped Dense, conv, DenseGeneral, Einsum, Embed or
-    norm layer."""
+    """Raise `TapUnsupported` unless each layer is tapped once, no Dense is
+    fed rows gathered by a router, and every leaf belongs to a tapped Dense,
+    conv, DenseGeneral, Einsum, Embed or norm layer."""
     paths = [t.path for t in taps]
     if len(set(paths)) != len(paths):
         raise TapUnsupported("A tapped layer runs more than once in the forward.")
+    if any(t.kind == "dense" and t.spec is not None for t in taps):
+        raise TapUnsupported("A routed expert's rows mix the batch's samples: no per-sample "
+                             "gradient from its tap.")
     kinds = dict(zip(paths, (t.kind for t in taps)))
     linear = ("kernel", "bias")
     roles = {"dense": linear, "conv": linear, "dense_general": linear, "unfactored": linear,

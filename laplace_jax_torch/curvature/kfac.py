@@ -8,7 +8,13 @@ Normalization contract, as in the JAX package:
   of a conv's output; a conv of G groups averages its groups' patch Grams,
   ``1/(N*T*G)``, each group's patches in its kernel's `(*k, in / G)` order;
   for Dense the positions between batch and feature
-  axes, 1 on a 2-d input: "expand" KFAC; for a DenseGeneral or Einsum the
+  axes, 1 on a 2-d input: "expand" KFAC; for a routed expert's Dense, fed
+  the `(rows, in)` tokens its router sent it, the positions per sample of
+  the batch they were gathered from, which the tap learns from the layer
+  that gathered them (`spec["positions"]`, `nnmodel.apply_with_taps`): a
+  token not routed there is a zero row, so A and B sum over the routed
+  rows and A keeps the ``1/(N*T)`` of the other projections on that
+  batch; for a DenseGeneral or Einsum the
   tap's activation rows, in the kernel's contracted order; for an Embed the
   one-hot rows, so ``A = diag(token counts) / (N*T)``);
 - gradient factor ``B = sum_s w_s sum_{n,t} g g^T`` over the cotangent
@@ -243,9 +249,23 @@ def kfac_factors(model, x, y, N: int, likelihood, lossfunc, fisher_type: str = "
 @spans.span("accumulate.grams")
 def _grams(swept, grads, w, N: int, dtype) -> tuple:
     """The A and B Grams of every swept tap (im2col included): ({path: A},
-    {path: B}, {path: a bias's own B}, {(path, role): a norm leaf's block})."""
+    {path: B}, {path: a bias's own B}, {(path, role): a norm leaf's block}).
+    The routed experts' Grams come last, in the span
+    `accumulate.grams.experts`, which counts their products."""
     B_facs, B_bias, A_facs, norm_blocks = {}, {}, {}, {}
-    for t, g in zip(swept, grads):
+    pairs = list(zip(swept, grads))
+    routed = [(t, g) for t, g in pairs if t.kind == "dense" and t.spec is not None]
+    _tap_grams([p for p in pairs if p[0].kind != "dense" or p[0].spec is None], w, N, dtype,
+               A_facs, B_facs, B_bias, norm_blocks)
+    if routed:
+        with spans.span("accumulate.grams.experts"):
+            _tap_grams(routed, w, N, dtype, A_facs, B_facs, B_bias, norm_blocks)
+        spans.count("accumulate.grams.experts.products", 2 * len(routed))
+    return A_facs, B_facs, B_bias, norm_blocks
+
+
+def _tap_grams(pairs, w, N: int, dtype, A_facs, B_facs, B_bias, norm_blocks) -> None:
+    for t, g in pairs:
         if t.path in A_facs or (t.path, "bias") in norm_blocks:  # a layer run twice keeps its first tap
             continue
         if t.kind == "norm":
@@ -274,9 +294,9 @@ def _grams(swept, grads, w, N: int, dtype) -> tuple:
             A_facs[t.path] = a.T @ a / (N * patches.shape[1] * G)
         else:  # (B, ..., in): every position between batch and feature is a row
             a = t.inputs.detach().reshape(-1, t.inputs.shape[-1])
-            A_facs[t.path] = a.T @ a / (N * (a.shape[0] // t.inputs.shape[0]))
+            T = t.spec["positions"] if t.spec else a.shape[0] // t.inputs.shape[0]
+            A_facs[t.path] = a.T @ a / (N * T)
         B_facs[t.path] = w * _gram(g)
-    return A_facs, B_facs, B_bias, norm_blocks
 
 
 def exact_leaf_accumulate(model, x, w, cot, specs, diagonal: bool = False) -> dict:

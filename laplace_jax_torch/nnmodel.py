@@ -20,6 +20,12 @@ twins of `models/flax_layers.py` are tapped too (`norm_tap`), their tap
 keeping the output, `scale`, `bias` and feature axis, as the JAX package's
 does (`laplace_jax/nnmodel.py:250-273`). The exact GGN's KFAC fit takes no
 norm taps; the `block` policy and the tap diagonal do.
+A Dense whose rows were gathered by a router (`models.deepseek_v2.RoutedLinear`,
+a held expert's projection on the `(rows, in)` tokens routed to it) sets
+`routed_positions` before each call; its tap's spec keeps it as
+`positions`, the positions per sample of the batch the rows came from, by
+which KFAC divides its activation Gram (a token not routed there is a zero
+row of a and g).
 The hook records the layer's input and adds a zero tensor that requires
 grad to the layer's output: the gradient with respect to that zero
 offset is the layer's output gradient, which KFAC needs for its B factor
@@ -68,7 +74,8 @@ class LayerTap:
     offset: Optional[torch.Tensor]  # zero added to the output, requiring grad (None: unfactored)
     # conv: kernel_size, strides, padding, dilation, input_dilation, wrap,
     # groups, mask (torch layout, or None); embed: num_embeddings;
-    # dense_general: n_feat, g_perm, g_perm_bias, kernel_layout
+    # dense_general: n_feat, g_perm, g_perm_bias, kernel_layout; a routed
+    # dense: positions (per sample, of the batch its rows were gathered from)
     spec: Optional[dict] = None
     outputs: Optional[torch.Tensor] = None  # norm: the output (detached)
     module: Optional[nn.Module] = None  # norm: the layer (`scale`, `bias`, `axis`)
@@ -309,6 +316,9 @@ class NNModel:
         def make_hook(path, kind, spec):
             def hook(mod, args, out):
                 tap_kind, tap_spec, rows = kind, spec, None
+                routed = getattr(mod, "routed_positions", None) if kind == "dense" else None
+                if routed is not None:  # rows gathered from a batch of `routed` positions a sample
+                    tap_spec = {"positions": routed}
                 if kind == "dense_general":
                     tap = general_linear_tap(mod, args[0])
                     if tap is None:

@@ -51,6 +51,11 @@ BASE_SIZE = 48
 JACOBI_SWEEPS = 12
 BISECT_ITERS = 40
 REFINE_ITERS = 10
+# a merge level's float64 temporaries are (tridiagonals, M, M): a stack is
+# merged in chunks of tridiagonals whose one such temporary, at the last
+# level, stays within this many bytes (a 147-deep stack of n = 2048, or
+# n = 10,944, would otherwise want tens of GB)
+MERGE_CHUNK_BYTES = 1 << 30
 
 
 def _round_robin_schedule(m: int) -> np.ndarray:
@@ -339,12 +344,31 @@ def _orthonormalize(V: torch.Tensor) -> torch.Tensor:
     return (Q * sign.unsqueeze(-2)).flip(-1)
 
 
+def _merge_sizes(n: int) -> tuple:
+    """(leaf size, padded size) of the D&C tree of an n-row tridiagonal:
+    leaves of at most `BASE_SIZE` rows, doubled at each level."""
+    L = max(1, math.ceil(math.log2(n / BASE_SIZE)))
+    m0 = -(-n // (1 << L))
+    return m0, m0 << L
+
+
 @spans.span("decompose.stage2")
 def tridiag_eigh(d: torch.Tensor, e: torch.Tensor):
     """Eigendecompose a batch of symmetric tridiagonals (Cuppen D&C).
 
     d (K, n) diagonals, e (K, n-1) sub-diagonals. Returns ascending
-    (vals (K, n), vecs (K, n, n))."""
+    (vals (K, n), vecs (K, n, n)). Above `BASE_SIZE` rows the stack goes
+    in chunks of at most `MERGE_CHUNK_BYTES` per merge temporary."""
+    K, n = d.shape
+    if n > BASE_SIZE:
+        step = max(1, MERGE_CHUNK_BYTES // (8 * _merge_sizes(n)[1] ** 2))
+        if K > step:
+            parts = [_tridiag_eigh(d[i:i + step], e[i:i + step]) for i in range(0, K, step)]
+            return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+    return _tridiag_eigh(d, e)
+
+
+def _tridiag_eigh(d: torch.Tensor, e: torch.Tensor):
     K, n = d.shape
     dtype, dev = d.dtype, d.device
     if n == 1:
@@ -353,9 +377,7 @@ def tridiag_eigh(d: torch.Tensor, e: torch.Tensor):
         T = torch.diag_embed(d) + torch.diag_embed(e, 1) + torch.diag_embed(e, -1)
         return _jacobi_eigh(T)
 
-    L = max(1, math.ceil(math.log2(n / BASE_SIZE)))
-    m0 = -(-n // (1 << L))
-    n_pad = m0 << L
+    m0, n_pad = _merge_sizes(n)
 
     # pad: decoupled large distinct diagonal entries sort last
     e_pad = torch.zeros(K, n_pad, dtype=dtype, device=dev)

@@ -16,7 +16,9 @@ import torch
 
 from laplace_jax.ops.tridiag_eig import eigh_stack_ts as jax_eigh_stack_ts
 from laplace_jax.ops.tridiag_eig import tridiag_eigh as jax_tridiag_eigh
+from laplace_jax_torch.ops import tridiag_eig as te
 from laplace_jax_torch.ops.tridiag_eig import (
+    _merge_level,
     _round_robin_pair,
     _round_robin_schedule,
     eigh_stack_ts,
@@ -71,6 +73,26 @@ def test_tridiag_eigh_matches_jax(n):
     lam, U = tridiag_eigh(torch.as_tensor(d), torch.as_tensor(e))
     T = np.stack([np.diag(d[k]) + np.diag(e[k], 1) + np.diag(e[k], -1) for k in range(2)])
     _check_pairs(T, lam, U, lam_j, 1e-9)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_tridiag_eigh_in_chunks_is_the_whole_stack(monkeypatch, dtype):
+    """A stack merged in chunks (a `MERGE_CHUNK_BYTES` that holds two
+    130-row tridiagonals, padded to 132) gives each tridiagonal's result of
+    the whole stack."""
+    rng = np.random.default_rng(5)
+    d = torch.as_tensor(rng.standard_normal((5, 130)), dtype=dtype)
+    e = torch.as_tensor(rng.standard_normal((5, 129)), dtype=dtype)
+    lam, U = tridiag_eigh(d, e)
+    monkeypatch.setattr(te, "MERGE_CHUNK_BYTES", 2 * 8 * 132 ** 2)
+    calls = []
+    monkeypatch.setattr(te, "_merge_level", lambda D, *a: calls.append(D.shape[0])
+                        or _merge_level(D, *a))
+    lam_c, U_c = tridiag_eigh(d, e)
+    assert calls == [4, 2, 4, 2, 2, 1]  # chunks of 2, 2, 1; 2 levels each (leaves of 33)
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    torch.testing.assert_close(lam_c, lam, rtol=0, atol=tol)
+    torch.testing.assert_close(U_c, U, rtol=0, atol=tol)
 
 
 @pytest.mark.parametrize("psd", [False, True], ids=["gaussian", "psd"])
