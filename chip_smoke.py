@@ -41,6 +41,12 @@ Phases, each printing one JSON line; any failed check exits non-zero:
              `||V^T V - I||` within 4 times the plain version's own, plus
              16 ulps), timed beside the plain version, `torch.linalg.eigh`
              on the same stack and the bound;
+   secular - stage 2's secular kernel (`csrc/secular.cu`, one launch a
+             merge level) at the main path's merge levels (1024x64,
+             32x2048, 3x4608, 1x11008: merges x roots) against its plain
+             version (active roots within 1e-12 of their gap), its launch
+             plan, timed beside its float64 bound, the plain solve on the
+             card and the whole `_merge_level`;
 4. reference - width-8 ResNet-18 fits in float64 on the card against the
              same fits on the CPU: all-weights KFAC (its 576 class runs the
              v1 kernel; LAPACK on the CPU) and last-layer Full (the float64
@@ -53,7 +59,8 @@ Phases, each printing one JSON line; any failed check exits non-zero:
              inputs in batches of 128, marglik prior tuning, and the GLM
              probit predictive on 8 inputs, with both LATRD kernels' launch
              counts read from this run (35 v1, 108 v4), the Jacobi leaves'
-             (5: one a factor class n >= 512) and every panel it
+             (5: one a factor class n >= 512), the secular kernel's (26:
+             one a merge level) and every panel it
              launched tallied by (K, m, off); the TF32 switches must read
              as they did before the fit (the port scopes its own);
    windows - each panel the main path launched, on a random window of its
@@ -234,8 +241,9 @@ Then the kernel summary line (with `main_path_ms`, `route_ms`,
 `stream_bound_ms` and v2's `ms_3x4608` where measured, and
 `launches_by_path`: each kernel's launches on the parallel,
 marglik_training, regression, subnet, reward, backends, transformer,
-conv_variants and serialization paths; the leaves' on each but parallel,
-whose ranks run in processes of their own), the
+conv_variants and serialization paths; the leaves' and the secular
+kernel's on each but parallel, whose ranks run in processes of their own;
+the secular row's `by_shape`), the
 `nvidia-smi` line, and last
 `{"ok": true, "device": {...}}`. Without a CUDA device, or outside the
 repository checkout, it exits non-zero and prints no result.
@@ -301,6 +309,7 @@ KERNELS = [  # (name, module, stage-1 driver and name, source, TPU kernel replac
 BITWISE = {"latrd_panel_v3", "latrd_panel", "latrd_panel_v2"}
 MAIN_LAUNCHES = {"latrd_panel": 35, "latrd_panel_v4": 108}  # panels of one all-weights fit
 LEAF_LAUNCHES = 5  # the Jacobi leaves' launches of that fit: one a class n >= 512
+SECULAR_LAUNCHES = 26  # the secular kernel's: one a merge level (4 + 4 + 5 + 6 + 7)
 # the main path's stage-2 leaves, (leaves, m) a class: 512, 576, 1152, 2304, 4608
 LEAF_SHAPES = [(96, 32), (80, 36), (128, 36), (256, 36), (384, 36)]
 
@@ -553,16 +562,18 @@ def more_shapes(name, kernel, plain, shapes, nb, gen, device):
 
 
 class LeafCount:
-    """The Jacobi leaves kernel's launches inside a `with` block (`n`)."""
+    """The Jacobi leaves kernel's launches inside a `with` block (`n`), and
+    the secular kernel's (`secular`)."""
 
     def __enter__(self):
-        from laplace_jax_torch.ops.tridiag_eig import _jacobi_eigh
+        from laplace_jax_torch.ops.tridiag_eig import _jacobi_eigh, _secular
 
-        self.kernel, self.n0 = _jacobi_eigh, _jacobi_eigh.launches
+        self.kernels = _jacobi_eigh, _secular
+        self.n0 = [k.launches for k in self.kernels]
         return self
 
     def __exit__(self, *exc):
-        self.n = self.kernel.launches - self.n0
+        self.n, self.secular = (k.launches - n0 for k, n0 in zip(self.kernels, self.n0))
         return False
 
 
@@ -626,6 +637,59 @@ def leaves_phase(seed, device):
                main_path_plain_ms=total["plain_ms"], main_path_bound_ms=total["bound_ms"],
                by_class=by_class, dtype="float32")
     emit(dict(phase="leaves", **row))
+    return row
+
+
+# the main path's merge levels, (merges, M): the first level of a 32-factor
+# chunk of the 2048 class and its top level, the top levels of the 4608 and
+# 10,944 classes
+SECULAR_SHAPES = [(1024, 64), (32, 2048), (3, 4608), (1, 11008)]
+SECULAR_TOL = 1e-12  # an active root against the plain solve, relative to its gap
+
+
+def secular_bound_ms(B: int, M: int, flops_peak: float):
+    """Least time for one secular launch: per (root, pole) pair, 42
+    evaluations of f (two subtractions, a division, an add) and 10 of f and
+    f' (a second division and add), a division counted as one operation.
+    Its bytes (a few arrays of B M) are far below."""
+    return 1e3 * B * M * M * (42 * 4 + 10 * 6) / flops_peak
+
+
+def secular_phase(seed, device):
+    """Stage 2's secular kernel at the main path's merge levels (merges of
+    `tests/torch_merges.deflating_merge`, float64), against its plain
+    version and timed, with the whole merge level (the kernel summary's
+    `secular` row; its `max_abs_err` is the worst active root's distance
+    from the plain solve's, over its gap)."""
+    import torch
+
+    from laplace_jax_torch.ops.tridiag_eig import _merge_level, _secular, _secular_plain
+    from tests.torch_merges import deflating_merge, secular_against_plain, secular_args
+
+    by_shape, worst = {}, 0.0
+    for B, M in SECULAR_SHAPES:
+        merge = deflating_merge(B, M, torch.float64, seed + M, device)
+        args = secular_args(*merge)
+        out, plain = _secular(*args), _secular_plain(*args)
+        torch.cuda.synchronize()
+        rel, stray = secular_against_plain(args, out, plain)
+        check(stray == 0, f"secular ({B}, {M}): {stray} roots took another origin")
+        check(rel <= SECULAR_TOL, f"secular ({B}, {M}): root off by {rel:.3e} of its gap")
+        worst = max(worst, rel)
+        ms = cuda_ms(lambda: _secular(*args), reps=5)
+        by_shape[f"{B}x{M}"] = dict(
+            ms=ms, plain_ms=cuda_ms(lambda: _secular_plain(*args), reps=1),
+            merge_ms=cuda_ms(lambda: _merge_level(*merge), reps=1),
+            bound_ms=secular_bound_ms(B, M, F64_FLOPS), max_rel_err=rel,
+            origins_differ=int((out[1] != plain[1])[args[1] > 0].sum()),
+            active=int((args[1] > 0).sum()))
+        del merge, args, out, plain
+    top = by_shape["1x11008"]
+    row = dict(name="secular", route="cuda", source="laplace_jax_torch/csrc/secular.cu",
+               replaces="none (laplace_jax/ops/tridiag_eig.py:_merge_level, jnp in fori_loops)",
+               max_abs_err=worst, ms=top["ms"], plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
+               bound_by="operations", library_ms=None, by_shape=by_shape, dtype="float64")
+    emit(dict(phase="secular", **row))
     return row
 
 
@@ -925,7 +989,8 @@ def main_path(seed, device, keep):
 
     res.update(n_params=la.n_params,
                accumulate_s=la.fit_seconds["accumulate"], decompose_s=la.fit_seconds["decompose"],
-               launches=launches, leaf_launches=leaves.n, symeig_retries=retries,
+               launches=launches, leaf_launches=leaves.n, secular_launches=leaves.secular,
+               symeig_retries=retries,
                factor_sizes=sizes,
                eig_rel_err_vs_eigh=worst, log_marglik=lml,
                prior_precision=pp, predictive_shape=list(probs.shape),
@@ -938,6 +1003,8 @@ def main_path(seed, device, keep):
     check(launches == MAIN_LAUNCHES, f"main-path launches {launches}, not {MAIN_LAUNCHES}")
     check(leaves.n == LEAF_LAUNCHES,
           f"main path launched the Jacobi leaves {leaves.n} times, not {LEAF_LAUNCHES}")
+    check(leaves.secular == SECULAR_LAUNCHES,
+          f"main path launched the secular kernel {leaves.secular} times, not {SECULAR_LAUNCHES}")
     check(flags_after_fit == flags0 and flags_after == flags0,
           f"TF32 switches {flags0} read {flags_after_fit} after the fit, {flags_after} at the end")
     check(all(sum(tally.counts[k].values()) == n for k, n in launches.items()),
@@ -3732,6 +3799,7 @@ def main() -> None:
     rows = [kernel_phase(*row, args.seed, device) for row in KERNELS]
     rows.append(syrk_phase(args.seed, device, _build.build_log("syrk")))
     rows.append(leaves_phase(args.seed, device))
+    rows.append(secular_phase(args.seed, device))
     reference_phase(args.seed, device)
     # each kernel's launches from the path that runs it: v1 and v4 from the
     # all-weights main path, syrk from the last-layer FullLL fit, v3 and v2
@@ -3742,7 +3810,8 @@ def main() -> None:
     # one rank's launches in one data-parallel fit of the main path (v1, v4)
     # and of its last layer (syrk)
     parallel_launches = parallel_phase(args.seed, device, smi, main, keep)
-    launches = dict(main["launches"], jacobi_leaves=main["leaf_launches"])
+    launches = dict(main["launches"], jacobi_leaves=main["leaf_launches"],
+                    secular=main["secular_launches"])
     ll_launches, full_syrk_ms = last_layer_phase(args.seed, device, keep)
     launches.update(ll_launches)
     next(r for r in rows if r["name"] == "syrk")["main_path_ms"] = full_syrk_ms
@@ -3752,13 +3821,14 @@ def main() -> None:
     # the SBR op chain on the main path's factor classes, then the examples
     sbr_phase(device, smi, keep)
     examples_phase(device, smi)
-    # the Jacobi leaves' launches on each path of this process, by phase
+    # the Jacobi leaves' and the secular kernel's launches on each path of
+    # this process, by phase
     leaves = {}
 
     def on_path(path, phase, *a):
         with LeafCount() as c:
             out = phase(*a)
-        leaves[path] = c.n
+        leaves[path] = dict(jacobi_leaves=c.n, secular=c.secular)
         return out
 
     # the marglik-training and regression paths, each read from its own run
@@ -3785,13 +3855,12 @@ def main() -> None:
                                        smi)
     by_path["serialization"] = on_path("serialization", serialization_phase, keep, device, smi,
                                        main["decompose_s"])
-    by_path = {p: dict(n, jacobi_leaves=leaves[p]) if p in leaves else n
-               for p, n in by_path.items()}
+    by_path = {p: dict(n, **leaves[p]) if p in leaves else n for p, n in by_path.items()}
 
     keys = ("name", "route", "source", "replaces", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     extra = ("main_path_ms", "route_ms", "stream_bound_ms", "ms_3x4608", "at_640x128",
-             "at_128x514", "main_path_plain_ms", "main_path_bound_ms", "by_class")
+             "at_128x514", "main_path_plain_ms", "main_path_bound_ms", "by_class", "by_shape")
     print(json.dumps({"kernels": [dict({k: r[k] for k in keys}, launches=launches[r["name"]],
                                        **{k: r[k] for k in extra if k in r},
                                        launches_by_path={p: n[r["name"]] for p, n in by_path.items()

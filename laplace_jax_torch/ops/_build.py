@@ -49,6 +49,8 @@ _SYRK = (_I, [_P, _P, _I, _I, _P])  # A, H, R, P, stream
 _SYRK_GEOMETRY = (_I, [_I, _I, ctypes.POINTER(_I)])
 # A, vals, vecs, B, m, sweeps, stream (ops/tridiag_eig._jacobi_eigh)
 _LEAVES = (_I, [_P, _P, _P, _I, _I, _I, _P])
+# ds, z2, rho, gap, nxt, mu, origin, B, M, tiny, stream (ops/tridiag_eig._secular)
+_SECULAR = {"secular_f64": (_I, [_P] * 7 + [ctypes.c_longlong, _I, ctypes.c_double, _P])}
 # each source's C entry points, as (result type, argument types); every
 # library also exports `error_string(int)`
 SIGNATURES = {
@@ -58,6 +60,7 @@ SIGNATURES = {
     "latrd_v2": _PANEL_ROWS_LIB,
     "syrk": {"syrk_f32": _SYRK, "syrk_f64": _SYRK, "syrk_geometry": _SYRK_GEOMETRY},
     "jacobi_leaves": {"jacobi_leaves_f32": _LEAVES, "jacobi_leaves_f64": _LEAVES},
+    "secular": _SECULAR,
 }
 SOURCES = tuple(SIGNATURES)
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

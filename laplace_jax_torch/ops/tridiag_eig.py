@@ -10,12 +10,13 @@ package in float32: a merge solves its secular equation in float64
 where the JAX package uses CholeskyQR2 (`_orthonormalize` says why).
 Everything is batched over the K factors of one size. Python loops take
 the place of the JAX package's `fori_loop`s; on CUDA the Jacobi leaves are
-one launch of `csrc/jacobi_leaves.cu` a call instead (`_jacobi_eigh`). The
-spans `decompose.stage2` and its `.leaves`, `.merge` (each level) and
+one launch of `csrc/jacobi_leaves.cu` a call instead (`_jacobi_eigh`), and
+a merge level's secular roots one launch of `csrc/secular.cu` (`_secular`).
+The spans `decompose.stage2` and its `.leaves`, `.merge` (each level) and
 `.orthonormalize`, and `decompose.stage1` and `decompose.back_transform` in
-`eigh_stack_ts`, time the stages, and the counter
-`decompose.stage2.leaf_launches` counts the leaves' launches
-(`utils/spans.py`).
+`eigh_stack_ts`, time the stages, and the counters
+`decompose.stage2.leaf_launches` and `decompose.stage2.secular_launches`
+count the two kernels' launches (`utils/spans.py`).
 
 `eigh_stack_ts` picks stage 1 as the JAX package does: on CUDA the LATRD
 panel kernel (`ops/latrd.py`) for 512 <= n < 2304 and the symmetric-half
@@ -166,6 +167,111 @@ def _suffix_min(x: torch.Tensor) -> torch.Tensor:
     return torch.cummin(x.flip(-1), dim=-1).values.flip(-1)
 
 
+def _secular(ds, z2, rho, gap, nxt, tiny: float):
+    """The secular roots of a merge level: for root r of merge b (ds (B, M)
+    ascending, z2 = 0 at a deflated pole, rho (B,), the bracket `gap` and
+    the next active pole `nxt` (M where none) from `_merge_level`), the
+    origin pole (r, or nxt[r] where the root lies in the upper half of its
+    gap) and mu, the root's offset from that pole, in float64: the origin
+    choice, `BISECT_ITERS` bisection and `REFINE_ITERS` refinement steps and
+    a final check, 52 evaluations of the secular function.
+
+    On a CUDA tensor one launch of `csrc/secular.cu` (a root per group of
+    lanes, the poles in shared memory, every evaluation in one launch); on
+    a CPU tensor `_secular_plain`. A CUDA tensor the kernel does not take
+    raises. `_secular.launches` counts the launches, and the counter
+    `decompose.stage2.secular_launches` too while recording."""
+    if ds.device.type == "cpu":
+        return _secular_plain(ds, z2, rho, gap, nxt, tiny)
+    B, M = ds.shape
+    for name, t in (("ds", ds), ("z2", z2), ("gap", gap), ("rho", rho)):
+        if t.dtype != torch.float64:
+            raise TypeError(f"secular kernel takes float64 {name}, got {t.dtype}")
+    if nxt.dtype != torch.int64:
+        raise TypeError(f"secular kernel takes int64 nxt, got {nxt.dtype}")
+    shapes_ok = (ds.ndim == 2 and all(tuple(t.shape) == (B, M) for t in (z2, gap, nxt))
+                 and tuple(rho.shape) == (B,))
+    if not shapes_ok or M < 1 or not all(t.is_contiguous() and t.device == ds.device
+                                         for t in (ds, z2, rho, gap, nxt)):
+        raise ValueError("secular kernel takes contiguous ds, z2, gap, nxt (B, M) and rho (B,) "
+                         f"on one device, got {tuple(ds.shape)}, {tuple(z2.shape)}, "
+                         f"{tuple(gap.shape)}, {tuple(nxt.shape)}, {tuple(rho.shape)}")
+    mu = torch.empty_like(ds)
+    origin = torch.empty_like(nxt)
+    if B == 0:
+        return mu, origin
+    lib = _build.load("secular")
+    rc = lib.secular_f64(ds.data_ptr(), z2.data_ptr(), rho.data_ptr(), gap.data_ptr(),
+                         nxt.data_ptr(), mu.data_ptr(), origin.data_ptr(), B, M, tiny,
+                         torch.cuda.current_stream(ds.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"secular launch failed: {lib.error_string(rc).decode()}")
+    _secular.launches += 1
+    spans.count("decompose.stage2.secular_launches")
+    return mu, origin
+
+
+_secular.launches = 0
+
+
+def _secular_plain(ds, z2, rho, gap, nxt, tiny: float):
+    """`_secular` in plain PyTorch: each evaluation of the secular function
+    over all (pole, root) pairs of the level at once, as float64 (B, M, M)
+    temporaries. Returns (mu, origin)."""
+    B, M = ds.shape
+    iota = torch.arange(M, device=ds.device)
+    has_up = nxt < M
+    rho_b = rho[:, None, None]
+    mask = z2[:, :, None] > 0
+
+    def f_eval(Dg, mu):
+        """Secular f(lambda), f'(lambda) with lambda = d_origin + mu."""
+        denom = Dg - mu[:, None, :]
+        denom = torch.where(denom == 0, tiny, denom)
+        t1 = torch.where(mask, rho_b * z2[:, :, None] / denom, 0.0)
+        t2 = torch.where(mask, t1 / denom, 0.0)
+        return 1.0 + t1.sum(1), t2.sum(1)
+
+    # origin selection: root in the upper half of the gap => upper pole
+    f_mid, _ = f_eval(ds[:, :, None] - ds[:, None, :], 0.5 * gap)
+    use_up = (f_mid < 0) & has_up
+    origin = torch.where(use_up, nxt, iota[None, :])
+    d_o = torch.gather(ds, 1, origin)
+    Dg = ds[:, :, None] - d_o[:, None, :]
+
+    zeros = torch.zeros_like(gap)
+    lo = torch.where(use_up, -0.5 * gap, zeros)
+    hi = torch.where(use_up, zeros, torch.where(has_up, 0.5 * gap, gap))
+    for _ in range(BISECT_ITERS):
+        mu = 0.5 * (lo + hi)
+        neg = f_eval(Dg, mu)[0] < 0
+        lo, hi = torch.where(neg, mu, lo), torch.where(neg, hi, mu)
+    mu = 0.5 * (lo + hi)
+
+    # pole-dominant fixed point (laed4's rational model), Newton, halving
+    z2_o = torch.gather(z2, 1, origin)
+    best_mu, best_af = mu, torch.full_like(mu, math.inf)
+    for _ in range(REFINE_ITERS):
+        f, fp = f_eval(Dg, mu)
+        af = f.abs()
+        better = af < best_af
+        best_mu = torch.where(better, mu, best_mu)
+        best_af = torch.where(better, af, best_af)
+        neg = f < 0
+        lo, hi = torch.where(neg, mu, lo), torch.where(neg, hi, mu)
+        mu_safe = torch.where(mu == 0, tiny, mu)
+        s_rest = f - 1.0 + rho[:, None] * z2_o / mu_safe
+        denom = 1.0 + s_rest
+        mu_fp = rho[:, None] * z2_o / torch.where(denom == 0, tiny, denom)
+        mu_nt = mu - f / fp.clamp(min=tiny)
+        good_fp = (mu_fp >= lo) & (mu_fp <= hi)
+        good_nt = (mu_nt >= lo) & (mu_nt <= hi)
+        mu = torch.where(good_fp, mu_fp, torch.where(good_nt, mu_nt, 0.5 * (lo + hi)))
+    f_fin, _ = f_eval(Dg, mu)
+    mu = torch.where(f_fin.abs() <= best_af, mu, best_mu)
+    return mu, origin
+
+
 @spans.span("decompose.stage2.merge")
 def _merge_level(D, U, rho, z):
     """One D&C merge: eigendecompose diag(D) + rho z z^T with the children's
@@ -224,54 +330,11 @@ def _merge_level(D, U, rho, z):
     d_up = torch.where(has_up, d_up, top)
     gap = (d_up - ds).clamp(min=tiny)
 
-    rho_b = rho[:, None, None]
-    mask = z2[:, :, None] > 0
-
-    def f_eval(Dg, mu):
-        """Secular f(lambda), f'(lambda) with lambda = d_origin + mu."""
-        denom = Dg - mu[:, None, :]
-        denom = torch.where(denom == 0, tiny, denom)
-        t1 = torch.where(mask, rho_b * z2[:, :, None] / denom, 0.0)
-        t2 = torch.where(mask, t1 / denom, 0.0)
-        return 1.0 + t1.sum(1), t2.sum(1)
-
-    # origin selection: root in the upper half of the gap => upper pole
-    f_mid, _ = f_eval(ds[:, :, None] - ds[:, None, :], 0.5 * gap)
-    use_up = (f_mid < 0) & has_up
-    origin = torch.where(use_up, nxt, iota[None, :])
+    # ---- secular roots: lam = d_origin + mu
+    mu, origin = _secular(ds, z2, rho, gap, nxt, tiny)
     d_o = torch.gather(ds, 1, origin)
     Dg = ds[:, :, None] - d_o[:, None, :]
-
-    zeros = torch.zeros_like(gap)
-    lo = torch.where(use_up, -0.5 * gap, zeros)
-    hi = torch.where(use_up, zeros, torch.where(has_up, 0.5 * gap, gap))
-    for _ in range(BISECT_ITERS):
-        mu = 0.5 * (lo + hi)
-        neg = f_eval(Dg, mu)[0] < 0
-        lo, hi = torch.where(neg, mu, lo), torch.where(neg, hi, mu)
-    mu = 0.5 * (lo + hi)
-
-    # pole-dominant fixed point (laed4's rational model), Newton, halving
-    z2_o = torch.gather(z2, 1, origin)
-    best_mu, best_af = mu, torch.full_like(mu, math.inf)
-    for _ in range(REFINE_ITERS):
-        f, fp = f_eval(Dg, mu)
-        af = f.abs()
-        better = af < best_af
-        best_mu = torch.where(better, mu, best_mu)
-        best_af = torch.where(better, af, best_af)
-        neg = f < 0
-        lo, hi = torch.where(neg, mu, lo), torch.where(neg, hi, mu)
-        mu_safe = torch.where(mu == 0, tiny, mu)
-        s_rest = f - 1.0 + rho[:, None] * z2_o / mu_safe
-        denom = 1.0 + s_rest
-        mu_fp = rho[:, None] * z2_o / torch.where(denom == 0, tiny, denom)
-        mu_nt = mu - f / fp.clamp(min=tiny)
-        good_fp = (mu_fp >= lo) & (mu_fp <= hi)
-        good_nt = (mu_nt >= lo) & (mu_nt <= hi)
-        mu = torch.where(good_fp, mu_fp, torch.where(good_nt, mu_nt, 0.5 * (lo + hi)))
-    f_fin, _ = f_eval(Dg, mu)
-    mu = torch.where(f_fin.abs() <= best_af, mu, best_mu)
+    mask = z2[:, :, None] > 0
     lam = torch.where(active, d_o + mu, ds)
 
     # ---- Gu-Eisenstat z-hat over ACTIVE r

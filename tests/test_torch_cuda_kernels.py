@@ -1,5 +1,6 @@
-"""The CUDA kernels (LATRD panels v1, v2, v3, v4, syrk, the Jacobi leaves)
-against their plain PyTorch versions, and the pooled spectral D&C, on the card.
+"""The CUDA kernels (LATRD panels v1, v2, v3, v4, syrk, the Jacobi leaves,
+the secular solve) against their plain PyTorch versions, and the pooled
+spectral D&C, on the card.
 
 These tests need a CUDA device (the kernels have no CPU mode) and skip
 without one. Run them on a machine with the card:
@@ -22,6 +23,13 @@ to 384 leaves, on diagonal and tied inputs, on the leaves of
 `tests/data/stage2_float32_tridiagonal.npz` and with a NaN: eigenvalues,
 ‖A V − V Λ‖ / ‖A‖ and ‖VᵀV − I‖ each within 4 times the plain version's
 own level over the leaves (plus 16 ulps).
+
+Stage 2's secular solve (`csrc/secular.cu`, one launch a merge level) is
+held against its plain version at the main path's merge shapes, on merges
+with every kind of deflation, from float32 and float64 merges: an active
+root within 1e-12 of its gap, its origin the plain version's except where
+f at mid-gap is within rounding of 0. Stage 2 with it runs against
+eigvalsh, on the float32 tridiagonal and with a NaN.
 
 The v4 panel is one cooperative launch per panel with a tile schedule from
 `ops/latrd_v4.panel_plan`; it is held against its plain version at every
@@ -1045,3 +1053,133 @@ def test_jacobi_leaves_reject_what_the_kernel_does_not_take(cuda):
         _jacobi_eigh(torch.zeros(2, 36, 72, device=cuda)[:, :, :36])
     with pytest.raises(TypeError):
         _jacobi_eigh(torch.zeros(2, 36, 36, dtype=torch.int32, device=cuda))
+
+
+# stage 2's secular solve (`csrc/secular.cu`) against its plain version on
+# the card: the same float64 operations, the sums over the poles in another
+# order. So an active root agrees to 1e-12 of its gap (both end inside the
+# same last bisection bracket, gap / 2**40 wide), and its origin is the
+# plain version's except where f at mid-gap is within rounding of 0.
+# (B, M), which take each launch shape the kernel chooses: the first level
+# of a 32-factor chunk of the 2048 class, the top levels of the 4608 and
+# 10,944 classes (a merge in slices of blocks), a merge that streams its
+# poles through shared memory in tiles, and small stacks that pack several
+# merges into a block (B odd: a block's last merge slot empty)
+SECULAR_SHAPES = [(1024, 64), (3, 4608), (1, 11008), (1, 16384), (7, 64), (5, 88), (1, 2048)]
+
+
+def _secular_args(B, M, dtype, seed, device):
+    """The arguments `_merge_level` hands `_secular` for B merges of
+    `tests/torch_merges.deflating_merge`."""
+    from .torch_merges import deflating_merge, secular_args
+
+    return secular_args(*deflating_merge(B, M, dtype, seed, device))
+
+
+def _hold_secular_to_plain(args):
+    from laplace_jax_torch.ops import tridiag_eig as te
+
+    from .torch_merges import secular_against_plain
+
+    n0 = te._secular.launches
+    out = te._secular(*args)
+    plain = te._secular_plain(*args)
+    torch.cuda.synchronize()
+    assert te._secular.launches == n0 + 1
+    assert out[0].dtype == torch.float64 and out[1].dtype == torch.int64
+    worst, stray = secular_against_plain(args, out, plain)
+    assert stray == 0, stray
+    assert worst <= 1e-12, worst
+    return worst
+
+
+@pytest.mark.parametrize("B,M", SECULAR_SHAPES, ids=[f"{B}x{M}" for B, M in SECULAR_SHAPES])
+def test_secular_matches_plain(cuda, B, M):
+    _hold_secular_to_plain(_secular_args(B, M, torch.float64, 100 + M, cuda))
+
+
+@pytest.mark.parametrize("B,M", [(7, 64), (5, 88), (1, 2048)], ids=["7x64", "5x88", "1x2048"])
+def test_secular_of_float32_merges_matches_plain(cuda, B, M):
+    """A float32 merge hands the solve float64 arguments (it solves in
+    float64), and the kernel runs them as any other."""
+    args = _secular_args(B, M, torch.float32, 200 + M, cuda)
+    assert all(t.dtype == torch.float64 for t in args[:4])
+    _hold_secular_to_plain(args)
+
+
+def test_tridiag_eigh_on_card_matches_eigvalsh(cuda):
+    """Stage 2 on the card, the secular kernel in every merge (one launch a
+    level, counted by the wrapper and by the counter
+    `decompose.stage2.secular_launches`): float64 against eigvalsh within
+    1e-10 of the spectrum, the float32 tridiagonal of
+    `tests/data/stage2_float32_tridiagonal.npz` to the CPU test's limits,
+    and a NaN in one tridiagonal reaching its eigenvalues only."""
+    from pathlib import Path
+
+    from laplace_jax_torch.ops import tridiag_eig as te
+    from laplace_jax_torch.utils import spans
+
+    rng = np.random.default_rng(1100)
+    d = torch.as_tensor(rng.standard_normal((3, 1100)), device=cuda)
+    e = torch.as_tensor(rng.standard_normal((3, 1099)), device=cuda)
+    T = torch.diag_embed(d) + torch.diag_embed(e, 1) + torch.diag_embed(e, -1)
+    te.tridiag_eigh(d, e)  # loads the libraries
+    torch.cuda.synchronize()
+    n0 = te._secular.launches
+    spans.reset()
+    with spans.recording():
+        lam, U = te.tridiag_eigh(d, e)
+        torch.cuda.synchronize()
+    s = spans.summary()
+    spans.reset()
+    levels = s["spans"]["decompose.stage2.merge"]["count"]
+    assert levels == 5  # leaves of 35, 5 merge levels to 1120
+    assert te._secular.launches == n0 + levels
+    assert s["counters"]["decompose.stage2.secular_launches"] == levels
+    ref = torch.linalg.eigvalsh(T)
+    scale = float(ref.abs().max())
+    torch.testing.assert_close(lam, ref, atol=1e-10 * scale, rtol=0)
+    torch.testing.assert_close(U @ torch.diag_embed(lam) @ U.mT, T, atol=1e-10 * scale, rtol=0)
+
+    data = np.load(Path(__file__).parent / "data" / "stage2_float32_tridiagonal.npz")
+    d32 = torch.as_tensor(data["d"], device=cuda)[None]
+    e32 = torch.as_tensor(data["e"], device=cuda)[None]
+    lam, vecs = te.tridiag_eigh(d32, e32)
+    T32 = (torch.diag_embed(d32.double()) + torch.diag_embed(e32.double(), 1)
+           + torch.diag_embed(e32.double(), -1))
+    ref = torch.linalg.eigvalsh(T32)
+    lam, vecs = lam.double(), vecs.double()
+    eig = float((lam - ref).abs().max() / ref.abs().max())
+    recon = float(torch.linalg.matrix_norm(vecs @ torch.diag_embed(lam) @ vecs.mT - T32)
+                  / torch.linalg.matrix_norm(T32))
+    orth = float((vecs.mT @ vecs - torch.eye(2304, dtype=torch.float64, device=cuda)).abs().max())
+    assert eig < 1e-5 and recon < 1e-5 and orth < 1e-5, (eig, recon, orth)
+
+    clean = torch.linalg.eigvalsh(T[[0, 2]])
+    d[1, 37] = float("nan")
+    lam_nan, _ = te.tridiag_eigh(d, e)
+    assert bool(lam_nan[1].isnan().any())
+    assert not bool(lam_nan[[0, 2]].isnan().any())
+    torch.testing.assert_close(lam_nan[[0, 2]], clean, atol=1e-10 * scale, rtol=0)
+
+
+def test_secular_rejects_what_the_kernel_does_not_take(cuda):
+    from laplace_jax_torch.ops.tridiag_eig import _secular
+
+    B, M = 2, 64
+    ds = torch.zeros(B, M, dtype=torch.float64, device=cuda)
+    nxt = torch.full((B, M), M, dtype=torch.int64, device=cuda)
+    rho = torch.ones(B, dtype=torch.float64, device=cuda)
+    ok = (ds, ds.clone(), rho, ds.clone(), nxt)
+    n0 = _secular.launches
+    with pytest.raises(TypeError):
+        _secular(ds.float(), *ok[1:], 1e-300)
+    with pytest.raises(TypeError):
+        _secular(*ok[:4], nxt.int(), 1e-300)
+    with pytest.raises(ValueError):
+        _secular(torch.zeros(M, B, dtype=torch.float64, device=cuda).mT, *ok[1:], 1e-300)
+    with pytest.raises(ValueError):
+        _secular(ds, ds[:, :32], *ok[2:], 1e-300)
+    with pytest.raises(ValueError):
+        _secular(*ok[:2], rho[:1], *ok[3:], 1e-300)
+    assert _secular.launches == n0

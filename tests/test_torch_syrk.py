@@ -47,9 +47,10 @@ def test_every_source_declares_its_entry_points():
     row-run panels (latrd, latrd_v2) declare theirs through the export
     macro of `csrc/latrd_panel.cuh`."""
     assert set(_build.SOURCES) == {"latrd", "latrd_v4", "latrd_v3", "latrd_v2", "syrk",
-                                   "jacobi_leaves"}
+                                   "jacobi_leaves", "secular"}
     assert set(_build.SIGNATURES["syrk"]) == {"syrk_f32", "syrk_f64", "syrk_geometry"}
     assert set(_build.SIGNATURES["jacobi_leaves"]) == {"jacobi_leaves_f32", "jacobi_leaves_f64"}
+    assert set(_build.SIGNATURES["secular"]) == {"secular_f64"}
     header = (_build.CSRC / "latrd_panel.cuh").read_text()
     macro = header[header.index("#define LATRD_ROWS_EXPORTS"):]
     for name in _build.SOURCES:

@@ -27,6 +27,8 @@ from laplace_jax_torch.ops.tridiag_eig import (
 from laplace_jax_torch.utils import matrix
 from laplace_jax_torch.utils.matrix import Kron
 
+from .torch_merges import deflating_merge
+
 # several test workers share the CPU: one intra-op thread each
 torch.set_num_threads(1)
 
@@ -126,25 +128,104 @@ def test_float32_rank_deficient_spectrum():
     _check_pairs(A, lam, vecs, ref, 1e-5)
 
 
+def _stage2_data():
+    data = np.load(Path(__file__).parent / "data" / "stage2_float32_tridiagonal.npz")
+    return torch.as_tensor(data["d"])[None], torch.as_tensor(data["e"])[None]
+
+
+def _assert_stage2_data_solved(d, e, lam, vecs):
+    """Eigenvalues, reconstruction and orthogonality of the float32
+    tridiagonal's solution within 1e-5 (float64 merges read about 5e-6)."""
+    T = torch.diag_embed(d.double()) + torch.diag_embed(e.double(), 1) \
+        + torch.diag_embed(e.double(), -1)
+    ref = torch.linalg.eigvalsh(T)
+    assert lam.dtype == vecs.dtype == torch.float32
+    lam, vecs = lam.double(), vecs.double()
+    eig = float((lam - ref).abs().max() / ref.abs().max())
+    recon = float(torch.linalg.matrix_norm(vecs @ torch.diag_embed(lam) @ vecs.mT - T)
+                  / torch.linalg.matrix_norm(T))
+    orth = float((vecs.mT @ vecs - torch.eye(T.shape[-1], dtype=torch.float64)).abs().max())
+    assert eig < 1e-5 and recon < 1e-5 and orth < 1e-5, (eig, recon, orth)
+
+
 def test_float32_merges_solve_the_secular_equation_in_float64():
     """A float32 tridiagonal (n = 2304, `band_to_tridiag` of a random
     Wishart matrix on the card) on which float32 merges settled the root
     near 2.0015 off by 1.5e-4, and its vector with it: eigenvalues 3.6e-5
     and reconstruction 2.8e-4 off, against 5e-6 and 4e-6 on its three
     siblings. Float32 merges now solve in float64."""
-    data = np.load(Path(__file__).parent / "data" / "stage2_float32_tridiagonal.npz")
-    d, e = torch.as_tensor(data["d"])[None], torch.as_tensor(data["e"])[None]
-    T = torch.diag_embed(d.double()) + torch.diag_embed(e.double(), 1) \
-        + torch.diag_embed(e.double(), -1)
-    ref = torch.linalg.eigvalsh(T)
-    lam, vecs = tridiag_eigh(d, e)
-    assert lam.dtype == vecs.dtype == torch.float32
-    lam, vecs = lam.double(), vecs.double()
-    eig = float((lam - ref).abs().max() / ref.abs().max())
-    recon = float(torch.linalg.matrix_norm(vecs @ torch.diag_embed(lam) @ vecs.mT - T)
-                  / torch.linalg.matrix_norm(T))
-    orth = float((vecs.mT @ vecs - torch.eye(2304, dtype=torch.float64)).abs().max())
-    assert eig < 1e-5 and recon < 1e-5 and orth < 1e-5, (eig, recon, orth)
+    d, e = _stage2_data()
+    _assert_stage2_data_solved(d, e, *tridiag_eigh(d, e))
+
+
+def _check_secular_solve(args, out):
+    """Each active root's mu lies in its bracket, [-gap/2, 0] from the upper
+    pole or [0, gap/2] (all of the gap above the last active pole) from its
+    own; and |f(mu)| is no larger than the bisection leaves it: the slope
+    times the last bracket's width (gap / 2**40), plus rounding. Returns the
+    roots checked."""
+    ds, z2, rho, gap, nxt, tiny = args
+    mu, origin = out
+    B, M = ds.shape
+    iota = torch.arange(M)
+    assert mu.dtype == torch.float64 and origin.dtype == torch.int64
+    use_up = origin != iota
+    assert bool((origin[use_up] == nxt[use_up]).all())
+    has_up = nxt < M
+    lo = torch.where(use_up, -0.5 * gap, 0.0)
+    hi = torch.where(use_up, 0.0, torch.where(has_up, 0.5 * gap, gap))
+    active = z2 > 0
+    assert bool(((mu >= lo) & (mu <= hi))[active].all())
+
+    d_o = torch.gather(ds, 1, origin)
+    denom = (ds[:, :, None] - d_o[:, None, :]) - mu[:, None, :]
+    denom = torch.where(denom == 0, tiny, denom)
+    t1 = torch.where(z2[:, :, None] > 0, rho[:, None, None] * z2[:, :, None] / denom, 0.0)
+    f = 1.0 + t1.sum(1)
+    slope = (t1 / denom).sum(1)
+    eps = torch.finfo(torch.float64).eps
+    level = slope * gap * 2.0 ** -40 + 8 * M * eps * (1.0 + t1.abs().sum(1))
+    assert bool((f.abs() <= level)[active].all()), float((f.abs() / level)[active].max())
+    return int(active.sum())
+
+
+@pytest.mark.parametrize("case", ["m64-float64", "m64-float32", "m88-float64", "m88-float32",
+                                  "m2048-float64", "m2048-float32", "stage2-data"])
+def test_secular_plain_solves_every_merge(monkeypatch, case):
+    """`_secular_plain`, the solve that `_merge_level` runs on the CPU and
+    that the card's kernel (`csrc/secular.cu`) is held to: on merges with
+    tied poles, zero-z deflation and a run whose survivor deflates, float32
+    and float64 merges (both solve in float64), each active root in its
+    bracket and |f(mu)| at the bisection's level. The float32 tridiagonal of
+    `tests/data/stage2_float32_tridiagonal.npz` (six levels, M = 72 to
+    2304) still solves to its limits."""
+    seen = []
+    real = te._secular
+
+    def record(*args):
+        out = real(*args)
+        seen.append((args, out))
+        return out
+
+    if case == "stage2-data":
+        d, e = _stage2_data()
+        run = lambda: tridiag_eigh(d, e)  # noqa: E731
+    else:
+        M, dtype = int(case.split("-")[0][1:]), getattr(torch, case.split("-")[1])
+        inputs = deflating_merge({64: 8, 88: 4, 2048: 1}[M], M, dtype, seed=M)
+        run = lambda: _merge_level(*inputs)  # noqa: E731
+    monkeypatch.setattr(te, "_secular", record)
+    got = run()
+    assert seen and all(args[0].dtype == torch.float64 for args, _ in seen)
+    checked = sum(_check_secular_solve(args, out) for args, out in seen)
+    assert checked > 0
+    if case == "stage2-data":
+        assert [args[0].shape[1] for args, _ in seen] == [72, 144, 288, 576, 1152, 2304]
+        _assert_stage2_data_solved(d, e, *got)
+    else:
+        ds, z2 = seen[0][0][:2]
+        assert bool((z2 == 0).any(1).all())  # every merge deflates
+        assert bool(((ds[:, 1:] == ds[:, :-1]) & (z2[:, 1:] == 0)).any(1).all())
 
 
 def test_entry_points_need_a_device():
