@@ -93,14 +93,10 @@ Phases, each printing one JSON line; any failed check exits non-zero:
              each kernel's launches read from its own fit; a second FullLL
              fit under `torch.profiler` gives the device time of its syrk
              launches (`full_syrk_ms`, syrk's `main_path_ms`);
-7. eigensolvers - on the same network and data, the pooled spectral D&C
-             through the user's entry point (`EIGH_IMPLEMENTATION = "dc"`,
-             a second `KronLaplace` fit) against float64 `eigvalsh` and the
-             `main` phase's marglik; every factor class n >= 512 of that fit
-             through `eigh_stack_ts` with the v3 and then the v2 kernel
-             (their launches read here, every panel tallied by (K, m,
-             off); no v2 panel may go to v1); and a float64 (2, 576) D&C on
-             the card against the same call on the CPU;
+7. eigensolvers - every factor class n >= 512 of the `main` fit through
+             `eigh_stack_ts` with the v3 and then the v2 kernel, against
+             float64 `eigvalsh` (their launches read here, every panel
+             tallied by (K, m, off); no v2 panel may go to v1);
    route_windows - each panel of the v3 and v2 runs, timed as in
              `windows` (each a persistent launch, v2's windows of the 2304
              and 4608 classes streaming most of their rows): the v3 and v2
@@ -292,8 +288,7 @@ SYRK_SHAPES = [((1280, 5130), "float32"), ((1280, 5131), "float32"), ((1280, 513
 GGN_TOL = 1e-4  # FullLL float32 H vs the float64 GGN, relative to its largest entry
 DIAG_TOL = 1e-5  # DiagLL H vs diag(FullLL H), relative to its largest entry
 
-DC_LML_TOL = 1e-4  # dc fit's marglik vs the main (ts) fit's, relative
-DC_F64_TOL = 1e-9  # float64 D&C on the card vs on the CPU, same draws
+DC_F64_TOL = 1e-9  # a float64 eigensolver on the card vs on the CPU
 
 KERNELS = [  # (name, module, stage-1 driver and name, source, TPU kernel replaced, K, n)
     ("latrd_panel", "latrd", "tridiagonalize_latrd", "latrd",
@@ -1520,51 +1515,19 @@ def class_stacks(kfacs):
     return out
 
 
-def eigensolvers_phase(seed, device, main):
-    """The eigensolver choices of `Kron.decompose` at full width: the pooled
-    spectral D&C through `KronLaplace.fit`, every class n >= 512 of that
-    fit through the v3 and the v2 stage-1 kernels, and a float64 D&C on the
-    card against the CPU."""
+def eigensolvers_phase(device, keep):
+    """The stage-1 routes that `Kron.decompose` does not take at full width:
+    every class n >= 512 of the `main` fit through `eigh_stack_ts` with the
+    v3 and the v2 stage-1 kernels."""
     import torch
 
-    from laplace_jax_torch import KronLaplace
-    from laplace_jax_torch.ops.eigh_dc import eigh_pooled_dc
     from laplace_jax_torch.ops.tridiag_eig import eigh_stack_ts
-    from laplace_jax_torch.utils import matrix
 
-    net, loader, _ = full_width(seed)
-    res = dict(phase="eigensolvers", model="ResNet18(width=64, num_classes=10)", n_data=512,
-               batch=128, dtype="float32", ts_fit_s=main["fit_s"],
-               ts_decompose_s=main["decompose_s"], ts_log_marglik=main["log_marglik"])
-
-    # 1. the pooled D&C through the user's entry point
-    la = KronLaplace(net, "classification", device=device)
-    zero_launches()
-    retries0 = matrix.SYMEIG_RETRIES
-    matrix.EIGH_IMPLEMENTATION = "dc"
-    try:
-        timed(res, "dc_fit_s", lambda: la.fit(loader))
-    finally:
-        matrix.EIGH_IMPLEMENTATION = None
-    res["dc_decompose_s"] = la.fit_seconds["decompose"]
-    res["dc_ts_kernel_launches"] = sum(kernel_launches("latrd_panel", "latrd_panel_v4").values())
-    res["dc_symeig_retries"] = matrix.SYMEIG_RETRIES - retries0
-    res["dc_log_marglik"] = float(la.log_marginal_likelihood())
-    res["dc_lml_rel_diff"] = abs(res["dc_log_marglik"] - main["log_marglik"]) / abs(main["log_marglik"])
-    stacks = class_stacks(la.H_facs.kfacs)
+    stacks = class_stacks(keep["main_kron"][0].H_facs.kfacs)
     refs = {n: torch.linalg.eigvalsh(st.double()) for n, (_, st) in stacks.items()}
-    dc_err, dc_recon = {}, {}
-    for n, (ks, st) in stacks.items():
-        lam = torch.stack([la.H.eigenvalues[gi][fi] for gi, fi in ks]).double()
-        Q = torch.stack([la.H.eigenvectors[gi][fi] for gi, fi in ks]).double()
-        ref = refs[n].clamp(min=0)
-        dc_err[n] = float(((lam - ref).abs().amax(1) / ref.abs().amax(1)).max())
-        Sd = st.double()
-        dc_recon[n] = float((torch.linalg.matrix_norm(Q @ torch.diag_embed(lam) @ Q.mT - Sd)
-                             / torch.linalg.matrix_norm(Sd)).max())
-    res.update(dc_eig_rel_err=dc_err, dc_recon_rel_err=dc_recon)
-
-    # 2. every class n >= 512 through the v3 and the v2 stage-1 kernels, each
+    res = dict(phase="eigensolvers", source="main path's ResNet-18 Kron factors",
+               dtype="float32")
+    # every class n >= 512 through the v3 and the v2 stage-1 kernels, each
     # panel tallied by (K, m, off, nb)
     tally = PanelTally(ROUTE_PANELS)
     for stage1 in ("latrd_v3", "latrd_v2"):
@@ -1579,27 +1542,8 @@ def eigensolvers_phase(seed, device, main):
         res[f"{stage1}_s"] = sum(secs.values())
         res[f"{stage1}_launches"] = kernel_launches("latrd_panel", "latrd_panel_v4",
                                                     "latrd_panel_v3", "latrd_panel_v2")
-
-    # 3. float64 D&C on the card against the CPU: its default draws come
-    # from seeded CPU generators and are moved to the card, so both calls
-    # see the same numbers
-    S = stacks[576][1][:2].double()
-    (l_gpu, _), = eigh_pooled_dc([S], device=device)
-    (l_cpu, _), = eigh_pooled_dc([S.cpu()], device="cpu")
-    res["dc_f64_gpu_vs_cpu"] = float((l_gpu.cpu() - l_cpu).abs().max() / l_cpu.abs().max())
     emit(res)
 
-    check(res["dc_ts_kernel_launches"] == 0,
-          f"the dc fit ran the two-stage kernels ({res['dc_ts_kernel_launches']} launches)")
-    check(res["dc_symeig_retries"] == 0, f"{res['dc_symeig_retries']} dc factors needed the symeig retry")
-    for n in stacks:
-        # held to the two-stage route's limits (the JAX package's float32
-        # oracle for its D&C is 5e-4); the D&C computes in float64
-        check(dc_err[n] <= EIG_TOL, f"dc eigenvalues at n={n} off by {dc_err[n]:.3e} > {EIG_TOL}")
-        check(dc_recon[n] <= RECON_TOL,
-              f"dc reconstruction at n={n}: {dc_recon[n]:.3e} > {RECON_TOL}")
-    check(res["dc_lml_rel_diff"] <= DC_LML_TOL,
-          f"dc marglik {res['dc_log_marglik']} vs ts {main['log_marglik']}")
     for stage1, kernel in (("latrd_v3", "latrd_panel_v3"), ("latrd_v2", "latrd_panel_v2")):
         for n, err in res[f"{stage1}_eig_rel_err"].items():
             check(err <= EIG_TOL, f"{stage1} eigenvalues at n={n} off by {err:.3e} > {EIG_TOL}")
@@ -1608,8 +1552,6 @@ def eigensolvers_phase(seed, device, main):
     for stage1, kernel in (("latrd_v3", "latrd_panel_v3"), ("latrd_v2", "latrd_panel_v2")):
         check(sum(tally.counts[kernel].values()) == res[f"{stage1}_launches"][kernel],
               f"{kernel}: panels tallied {tally.counts[kernel]} against its launches")
-    check(res["dc_f64_gpu_vs_cpu"] <= DC_F64_TOL,
-          f"float64 dc on the card vs the CPU: {res['dc_f64_gpu_vs_cpu']:.3e} > {DC_F64_TOL}")
     return ({"latrd_panel_v3": res["latrd_v3_launches"]["latrd_panel_v3"],
              "latrd_panel_v2": res["latrd_v2_launches"]["latrd_panel_v2"]}, tally.counts)
 
@@ -3815,7 +3757,7 @@ def main() -> None:
     ll_launches, full_syrk_ms = last_layer_phase(args.seed, device, keep)
     launches.update(ll_launches)
     next(r for r in rows if r["name"] == "syrk")["main_path_ms"] = full_syrk_ms
-    route_launches, route_panels = eigensolvers_phase(args.seed, device, main)
+    route_launches, route_panels = eigensolvers_phase(device, keep)
     launches.update(route_launches)
     window_phase(rows, route_panels, args.seed, device, smi, total="route_ms")
     # the SBR op chain on the main path's factor classes, then the examples

@@ -9,17 +9,15 @@ is the 1-factor group ``(F,)``.
 `Kron.decompose` sends each same-shape stack of factors to the two-stage
 eigensolver `eigh_stack_ts` on CUDA (float32/float64, n >= 512) and to
 `torch.linalg.eigh` otherwise, as the JAX package sends them to its
-two-stage solver on an accelerator and to LAPACK on the CPU. With
-`EIGH_IMPLEMENTATION = "dc"` every CUDA class with n >= 512 of one dtype
-goes instead to one pooled spectral divide-and-conquer call
-(`ops/eigh_dc.eigh_pooled_dc`). Each factor's output is checked for NaN; a
-bad factor takes the `symeig` jitter retry, and `SYMEIG_RETRIES` counts
-those factors, so an eigensolver that returns NaN cannot hide behind the
-retry. `decompose(devices=[...])` spreads the factors over several devices
-(largest first, to the least-loaded), as the JAX package's multi-device
-decompose does. The spans `decompose.class` (a stack), `decompose.eigh`
-(`torch.linalg.eigh`), `decompose.flags` (the flag read and the retries)
-and the counter `decompose.retries` time and count it (`utils/spans.py`).
+two-stage solver on an accelerator and to LAPACK on the CPU. Each factor's
+output is checked for NaN; a bad factor takes the `symeig` jitter retry,
+and `SYMEIG_RETRIES` counts those factors, so an eigensolver that returns
+NaN cannot hide behind the retry. `decompose(devices=[...])` spreads the
+factors over several devices (largest first, to the least-loaded), as the
+JAX package's multi-device decompose does. The spans `decompose.class` (a
+stack), `decompose.eigh` (`torch.linalg.eigh`), `decompose.flags` (the
+flag read and the retries) and the counter `decompose.retries` time and
+count it (`utils/spans.py`).
 """
 
 from __future__ import annotations
@@ -29,7 +27,6 @@ from typing import Sequence
 
 import torch
 
-from laplace_jax_torch.ops.eigh_dc import eigh_pooled_dc
 from laplace_jax_torch.ops.tridiag_eig import eigh_stack_ts
 from laplace_jax_torch.utils import spans
 from laplace_jax_torch.utils.device import full_f32
@@ -37,38 +34,32 @@ from laplace_jax_torch.utils.linalg import block_diag, kron, symeig
 
 __all__ = ["Kron", "KronDecomposed"]
 
-# Eigensolver of `Kron.decompose` on CUDA: None or "ts" (the two-stage
-# solver, the default), or "dc" (the pooled spectral divide-and-conquer).
-# The JAX package's "qdwh" and "jacobi" name XLA's own eigh solvers, which
-# PyTorch does not have: they raise.
+# Eigensolver of `Kron.decompose` on CUDA: None or "ts", the two-stage
+# solver, the port's only one. The JAX package's other names ("dc", its
+# pooled spectral divide-and-conquer; "qdwh" and "jacobi", XLA's own eigh
+# solvers) raise.
 EIGH_IMPLEMENTATION: str | None = None
 
-# below these sizes the two-stage and the D&C paths' fixed costs do not pay
-# (the JAX package's `_TS_MIN_SIZE`, `_DC_MIN_SIZE`)
+# below this size the two-stage path's fixed costs do not pay (the JAX
+# package's `_TS_MIN_SIZE`)
 _TS_MIN_SIZE = 512
-_DC_MIN_SIZE = 512
 
 # factors sent to the `symeig` retry by `Kron.decompose` in this process
 SYMEIG_RETRIES = 0
 
 
 def _check_implementation() -> None:
-    if EIGH_IMPLEMENTATION in ("qdwh", "jacobi"):
+    if EIGH_IMPLEMENTATION in ("dc", "qdwh", "jacobi"):
         raise ValueError(
-            f"EIGH_IMPLEMENTATION={EIGH_IMPLEMENTATION!r} selects one of XLA's own eigh "
-            "solvers, which have no PyTorch counterpart; use None/'ts' or 'dc'.")
-    if EIGH_IMPLEMENTATION not in (None, "ts", "dc"):
+            f"EIGH_IMPLEMENTATION={EIGH_IMPLEMENTATION!r} names one of the JAX package's "
+            "eigensolvers; the port has the two-stage solver only: use None or 'ts'.")
+    if EIGH_IMPLEMENTATION not in (None, "ts"):
         raise ValueError(f"Unknown EIGH_IMPLEMENTATION {EIGH_IMPLEMENTATION!r}; "
-                         "use None, 'ts' or 'dc'.")
-
-
-def _use_dc(stack: torch.Tensor) -> bool:
-    return (stack.is_cuda and EIGH_IMPLEMENTATION == "dc"
-            and stack.shape[-1] >= _DC_MIN_SIZE)
+                         "use None or 'ts'.")
 
 
 def _use_ts(stack: torch.Tensor) -> bool:
-    return (EIGH_IMPLEMENTATION in (None, "ts") and stack.is_cuda
+    return (stack.is_cuda
             and stack.shape[-1] >= _TS_MIN_SIZE
             and stack.dtype in (torch.float32, torch.float64))
 
@@ -217,8 +208,9 @@ class Kron:
     @full_f32()
     def decompose(self, damping: bool = False, devices=None) -> "KronDecomposed":
         """Eigendecompose every factor: one batched call per (device, shape,
-        dtype), or, with `EIGH_IMPLEMENTATION = "dc"`, one pooled D&C call
-        for all eligible classes of each (device, dtype).
+        dtype), `eigh_stack_ts` for a CUDA class with n >= 512 and
+        `torch.linalg.eigh` for the rest. An `EIGH_IMPLEMENTATION` other
+        than None or "ts" raises `ValueError` before any factor is solved.
 
         `devices` (the JAX package's `utils/matrix.py:340-470`): None (the
         factors' own device), a sequence of `torch.device`s, or a
@@ -241,16 +233,10 @@ class Kron:
         for gi, fi in sorted(keys, key=device_of.get):  # each device's in factor order
             H = self.kfacs[gi][fi]
             groups.setdefault((device_of[(gi, fi)], tuple(H.shape), H.dtype), []).append((gi, fi))
-        pending, dc_pools = [], {}
-        for (d, _, dtype), keys in groups.items():
+        pending = []
+        for (d, _, _), keys in groups.items():
             stack = torch.stack([self.kfacs[gi][fi].to(dev_list[d]) for gi, fi in keys])
-            if _use_dc(stack):
-                dc_pools.setdefault((d, dtype), []).append((keys, stack))
-            else:
-                pending.append((keys, *_batched_eigh_clipped(stack)))
-        for (d, _), pool in dc_pools.items():
-            outs = eigh_pooled_dc([stack for _, stack in pool], device=dev_list[d])
-            pending.extend((keys, *_clip_flags(l, Q)) for (keys, _), (l, Q) in zip(pool, outs))
+            pending.append((keys, *_batched_eigh_clipped(stack)))
         first = dev_list[0]
         results, flag_keys = {}, []
         for keys, ls, Qs, _ in pending:

@@ -1,6 +1,5 @@
 """The CUDA kernels (LATRD panels v1, v2, v3, v4, syrk, the Jacobi leaves,
-the secular solve) against their plain PyTorch versions, and the pooled
-spectral D&C, on the card.
+the secular solve) against their plain PyTorch versions, on the card.
 
 These tests need a CUDA device (the kernels have no CPU mode) and skip
 without one. Run them on a machine with the card:
@@ -439,19 +438,6 @@ def test_panel_writes_stay_inside_the_scratch_it_declares(cuda, lib_name):
         assert bool((buf[key][n:] == mark).all()), f"{lib_name} wrote past {key}"
     if tiled:
         assert torch.equal(tiled._plans[plan_key][0], table)
-
-
-def test_eigh_stack_dc_on_card_matches_eigvalsh(cuda):
-    from laplace_jax_torch.ops.eigh_dc import eigh_stack_dc
-
-    rng = np.random.default_rng(8)
-    Q = np.linalg.qr(rng.standard_normal((2, 600, 600)))[0]
-    lam = np.exp(-np.linspace(0.0, 8.0, 600))[None] * (1 + rng.random((2, 600)))
-    A = torch.as_tensor(np.einsum("kij,kj,klj->kil", Q, lam, Q)).to(cuda)
-    A = (A + A.mT) / 2
-    vals, vecs = eigh_stack_dc(A)
-    torch.testing.assert_close(vals, torch.linalg.eigvalsh(A), atol=1e-10, rtol=0)
-    torch.testing.assert_close(vecs @ torch.diag_embed(vals) @ vecs.mT, A, atol=1e-10, rtol=0)
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):

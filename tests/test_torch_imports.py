@@ -38,7 +38,7 @@ def test_port_imports_no_jax(path):
 
 def test_port_package_is_covered():
     names = {p.name for p in FILES}
-    assert {"latrd.py", "latrd_v4.py", "latrd_v3.py", "latrd_v2.py", "eigh_dc.py", "syrk.py",
+    assert {"latrd.py", "latrd_v4.py", "latrd_v3.py", "latrd_v2.py", "syrk.py",
             "baselaplace.py", "lllaplace.py", "lanczos.py", "flax_layers.py", "band.py",
             "chase.py", "chip_smoke.py"} <= names
     examples = {p.name for p in FILES if p.parent.name == "examples_torch"}
