@@ -6,8 +6,9 @@ batched round-robin Jacobi base case, and merges with branchless LAPACK
 laed2/laed3-style deflation, an origin-selected bisection + Newton secular
 solver and the Gu-Eisenstat z-recomputation. Two departures from the JAX
 package in float32: a merge solves its secular equation in float64
-(`_merge_level` says why), and the vectors are re-orthonormalized by QR
-where the JAX package uses CholeskyQR2 (`_orthonormalize` says why).
+(`_merge_level` says why), and the vectors are polished by one
+Newton-Schulz step in float64 where the JAX package uses CholeskyQR2
+(`_orthonormalize` says why).
 Everything is batched over the K factors of one size. Python loops take
 the place of the JAX package's `fori_loop`s; on CUDA the Jacobi leaves are
 one launch of `csrc/jacobi_leaves.cu` a call instead (`_jacobi_eigh`), and
@@ -57,6 +58,9 @@ REFINE_ITERS = 10
 # level, stays within this many bytes (a 147-deep stack of n = 2048, or
 # n = 10,944, would otherwise want tens of GB)
 MERGE_CHUNK_BYTES = 1 << 30
+# largest max |VᵀV - I| of a float32 basis that `_orthonormalize` polishes;
+# a factor beyond it comes back as NaN for the `symeig` retry
+ORTH_GUARD = 1e-4
 
 
 def _round_robin_schedule(m: int) -> np.ndarray:
@@ -389,22 +393,39 @@ def _merge_level(D, U, rho, z):
 
 @spans.span("decompose.stage2.orthonormalize")
 def _orthonormalize(V: torch.Tensor) -> torch.Tensor:
-    """Restore orthonormality of f32 eigenvector columns (ascending
-    eigenvalues): Householder QR of the columns in descending-eigenvalue
-    order, signs kept.
+    """Restore orthonormality of a (K, n, n) stack of float32 eigenvector
+    columns by one Newton-Schulz (polar) step, V - V E / 2 with E = VᵀV - I:
+    two batched float64 GEMMs, rounded once to V's dtype. Column order and
+    signs stay; V moves only by its own deviation, to the nearest
+    orthonormal basis up to O(E²). A factor whose max |E| is not within
+    `ORTH_GUARD` comes back as NaN, which `Kron.decompose`'s flags send to
+    the `symeig` retry, as the JAX package's CholeskyQR2 sends a failed
+    Cholesky; no value is read on the host.
 
-    The JAX package applies CholeskyQR2 here. On KFAC factors f32 secular
-    noise can leave two columns of a cluster of numerically-zero eigenvalues
-    (nearly) equal; their Gram is then not positive definite and the
-    Cholesky fails (NaN on the JAX side, which sends the factor to the
-    `symeig` retry). QR works for any columns: the well-separated
-    large-eigenvalue columns come first and move only by their
-    orthogonality error, and a dependent cluster column becomes the
-    complement of all columns before it, which lies in its cluster.
+    The Gram is formed in float64 because in float32 its own rounding
+    (about √n ε₃₂) is as large as E; the product runs in float64 too, which
+    the H100 did faster than in float32 (0.46 against 0.49 s over the
+    reward cell's classes). The step needs nearly orthonormal columns. The
+    float32 secular noise that made the port use Householder QR here went
+    with the float64 merges (`_merge_level`): over every class of the
+    ResNet-18 and DeepSeek-V2-Lite fits on an H100, stage 2's float32
+    vectors deviate by 5.2e-6 to 1.04e-5 before the polish (5.5e-6 to
+    6.2e-6 on the CPU tests' cases) and leave it below 1e-7, where the QR
+    left 8.0e-7 to 1.8e-6. A factor of very low rank (an expert's
+    output-gradient factor with 4 to 6 nonzero eigenvalues of 1408, say)
+    still, in about one reward fit of four, comes out with a pair of
+    columns 4.5e-3 to 0.11 from orthonormal, which one step leaves at
+    1.5e-5 to 1e-2; the next-worst factors read 2.1e-5 to 2.3e-5, which it
+    takes to 6e-8. `ORTH_GUARD` (1e-4) lies between the two: one step
+    leaves about (3/4) E² behind, so below it the basis comes out near
+    float32's working precision, and above it the factor is retried.
     """
-    Q, R = torch.linalg.qr(V.flip(-1))
-    sign = torch.where(torch.diagonal(R, dim1=-2, dim2=-1) < 0, -1.0, 1.0).to(V.dtype)
-    return (Q * sign.unsqueeze(-2)).flip(-1)
+    V64 = V.double()
+    E = V64.mT @ V64
+    E.diagonal(dim1=-2, dim2=-1).sub_(1.0)
+    within = E.abs().amax((-2, -1)) <= ORTH_GUARD  # False for NaN too
+    V1 = torch.baddbmm(V64, V64, E, alpha=-0.5).to(V.dtype)
+    return torch.where(within[:, None, None], V1, torch.nan)
 
 
 def _merge_sizes(n: int) -> tuple:
@@ -487,8 +508,8 @@ def _tridiag_eigh(d: torch.Tensor, e: torch.Tensor):
 
     Uf = U[:, 0, :n, :n]
     if dtype == torch.float32:
-        # f32 secular noise breaks Gu-Eisenstat orthogonality inside
-        # near-degenerate clusters
+        # the float32 products U @ G of the levels leave the columns about
+        # 1e-5 from orthonormal: one Newton-Schulz step in float64
         Uf = _orthonormalize(Uf)
     return D[:, 0, :n], Uf
 

@@ -28,7 +28,10 @@ held against its plain version at the main path's merge shapes, on merges
 with every kind of deflation, from float32 and float64 merges: an active
 root within 1e-12 of its gap, its origin the plain version's except where
 f at mid-gap is within rounding of 0. Stage 2 with it runs against
-eigvalsh, on the float32 tridiagonal and with a NaN.
+eigvalsh, on the float32 tridiagonal and with a NaN. Stage 2's float32
+polish (one Newton-Schulz step on a float64 Gram) is held to the
+Householder-QR polish it replaced, at the reward cell's widths: no factor's
+orthogonality or residual worse.
 
 The v4 panel is one cooperative launch per panel with a tile schedule from
 `ops/latrd_v4.panel_plan`; it is held against its plain version at every
@@ -1169,3 +1172,50 @@ def test_secular_rejects_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError):
         _secular(*ok[:2], rho[:1], *ok[3:], 1e-300)
     assert _secular.launches == n0
+
+
+@pytest.mark.parametrize("K, n", [(4, 2048), (2, 4096)])
+def test_float32_polish_on_card_is_no_worse_than_qr(cuda, monkeypatch, K, n):
+    """Stage 2's float32 polish (`_orthonormalize`, one Newton-Schulz step in
+    float64) on a stack at the reward cell's widths (v1 at 2048, v4 at
+    4096) of rank-deficient KFAC-like factors (Grams of n / 4 ReLU rows),
+    against the Householder-QR polish of the same vectors, computed here:
+    each polished basis's max |VᵀV - I| within 1e-6 and no larger than the
+    QR's, and `eigh_stack_ts`'s ‖AQ - QΛ‖ / ‖A‖ over the stack no larger
+    than with the QR's basis back-transformed; no factor is refused. (The
+    back-transform's rounding, about 1e-6 to 4e-6, sets the end-to-end
+    orthogonality with either polish.)"""
+    from laplace_jax_torch.ops import tridiag_eig as te
+
+    from .torch_merges import qr_polish
+
+    g = torch.Generator(device=cuda).manual_seed(n)
+    X = torch.randn(K, n // 4, n, device=cuda, generator=g).clamp(min=0)
+    A = X.mT @ X / (n // 4)
+    A = (A + A.mT) / 2
+    seen = {"qr": [], "step": []}
+    real, real_apply_q = te._orthonormalize, te.apply_q
+
+    def both(V):
+        seen["qr"].append(qr_polish(V))
+        seen["step"].append(real(V))
+        return seen["step"][-1]
+
+    def apply_both(V, taus, Ut, nb):
+        seen["Q_qr"] = real_apply_q(V, taus, torch.cat(seen["qr"]), nb=nb)
+        return real_apply_q(V, taus, Ut, nb=nb)
+
+    monkeypatch.setattr(te, "_orthonormalize", both)
+    monkeypatch.setattr(te, "apply_q", apply_both)
+    lam, Q = te.eigh_stack_ts(A, device=cuda)
+    assert lam.dtype == Q.dtype == torch.float32
+    eye = torch.eye(n, dtype=torch.float64, device=cuda)
+    steps, qrs = torch.cat(seen["step"]), torch.cat(seen["qr"])
+    assert bool(steps.isfinite().all())
+    for step, qr in zip(steps.double(), qrs.double()):
+        got, ref = (float((M.mT @ M - eye).abs().max()) for M in (step, qr))
+        assert got <= 1e-6 and got <= ref, (got, ref)
+    A64, lam64 = A.double(), lam.double()[:, None, :]
+    resid = [float(torch.linalg.vector_norm(A64 @ M.double() - M.double() * lam64)
+                   / torch.linalg.vector_norm(A64)) for M in (Q, seen["Q_qr"])]
+    assert resid[0] <= resid[1], resid

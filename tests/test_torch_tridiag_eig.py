@@ -25,9 +25,10 @@ from laplace_jax_torch.ops.tridiag_eig import (
     tridiag_eigh,
 )
 from laplace_jax_torch.utils import matrix
+from laplace_jax_torch.utils.linalg import symeig
 from laplace_jax_torch.utils.matrix import Kron
 
-from .torch_merges import deflating_merge
+from .torch_merges import deflating_merge, qr_polish
 
 # several test workers share the CPU: one intra-op thread each
 torch.set_num_threads(1)
@@ -107,9 +108,9 @@ def test_eigh_stack_ts_matches_jax(stage1, psd):
 
 
 def test_eigh_stack_ts_float32_polished():
-    """float32 runs through the QR polish (`_orthonormalize`, where the JAX
-    package applies CholeskyQR2); eigenvalues within n * eps32 * ||A||
-    (~1e-5 at n = 100)."""
+    """float32 runs through the polish (`_orthonormalize`: one Newton-Schulz
+    step on a float64 Gram, where the JAX package applies CholeskyQR2);
+    eigenvalues within n * eps32 * ||A|| (~1e-5 at n = 100)."""
     A = _sym(8, 2, 100, psd=True).astype(np.float32)
     lam, vecs = eigh_stack_ts(torch.as_tensor(A), nb=16, device="cpu")
     ref = np.linalg.eigvalsh(A.astype(np.float64))
@@ -118,9 +119,11 @@ def test_eigh_stack_ts_float32_polished():
 
 def test_float32_rank_deficient_spectrum():
     """A KFAC-like factor with a large cluster of numerically-zero
-    eigenvalues: float32 D&C duplicates vectors inside the cluster, where
-    CholeskyQR2 (the JAX package's polish) finds no Cholesky factor; the QR
-    polish returns an orthonormal basis and accurate pairs."""
+    eigenvalues: merges that solve in float32, as the JAX package's do,
+    duplicate vectors inside the cluster, where its CholeskyQR2 finds no
+    Cholesky factor; the port's merges solve in float64, leave no
+    duplicate, and its Newton-Schulz polish returns an orthonormal basis
+    and accurate pairs."""
     X = np.maximum(np.random.default_rng(10).standard_normal((2, 40, 256)), 0)
     A = np.einsum("kri,krj->kij", X, X).astype(np.float32) / 40
     lam, vecs = eigh_stack_ts(torch.as_tensor(A), nb=16, device="cpu")
@@ -156,6 +159,101 @@ def test_float32_merges_solve_the_secular_equation_in_float64():
     siblings. Float32 merges now solve in float64."""
     d, e = _stage2_data()
     _assert_stage2_data_solved(d, e, *tridiag_eigh(d, e))
+
+
+def _orth(V):
+    V = V.double()
+    return float((V.mT @ V - torch.eye(V.shape[-1], dtype=torch.float64)).abs().max())
+
+
+def _rank_deficient(seed, n, rows):
+    """Two KFAC-like float32 factors of rank at most `rows` (the Grams of
+    ReLU features), as in `test_float32_rank_deficient_spectrum`."""
+    X = np.maximum(np.random.default_rng(seed).standard_normal((2, rows, n)), 0)
+    return torch.as_tensor(np.einsum("kri,krj->kij", X, X).astype(np.float32) / rows)
+
+
+@pytest.mark.parametrize("case", ["rank-deficient-256", "rank-deficient-1024", "stage2-data"])
+def test_float32_polish_is_no_worse_than_qr(monkeypatch, case):
+    """The polish of stage 2's float32 vectors (about 6e-6 from orthonormal
+    before it) leaves max |VᵀV - I| within 1e-6 and no larger than the
+    Householder-QR polish of the same vectors, keeps each column within
+    1e-5 of the QR's (order and signs kept). On the rank-deficient factors,
+    `eigh_stack_ts`'s eigenpairs with either polish pass `_check_pairs` at
+    float32's 1e-5 and agree within 1e-5."""
+    seen = {}
+    real, real_apply_q = te._orthonormalize, te.apply_q
+
+    def both(V):
+        seen["V"], seen["qr"] = V.clone(), qr_polish(V)
+        seen["step"] = real(V)
+        return seen["step"]
+
+    def apply_both(V, taus, Ut, nb):
+        seen["Q_qr"] = real_apply_q(V, taus, seen["qr"], nb=nb)
+        return real_apply_q(V, taus, Ut, nb=nb)
+
+    monkeypatch.setattr(te, "_orthonormalize", both)
+    monkeypatch.setattr(te, "apply_q", apply_both)
+    if case == "stage2-data":
+        tridiag_eigh(*_stage2_data())
+    else:
+        n = int(case.rsplit("-", 1)[1])
+        A = _rank_deficient(10, n, {256: 40, 1024: 300}[n])
+        lam, Q = eigh_stack_ts(A, nb=16, device="cpu")
+        ref = np.linalg.eigvalsh(A.numpy().astype(np.float64))
+        _check_pairs(A.numpy(), lam, Q, ref, 1e-5)
+        _check_pairs(A.numpy(), lam, seen["Q_qr"], ref, 1e-5)
+        assert float((Q - seen["Q_qr"]).abs().max()) < 1e-5
+    V, step, qr = seen["V"], seen["step"], seen["qr"]
+    assert V.dtype == step.dtype == torch.float32
+    before, got, ref_qr = _orth(V), _orth(step), _orth(qr)
+    assert got <= 1e-6 and got <= ref_qr < before, (before, got, ref_qr)
+    assert float((step - qr).abs().max()) < 1e-5
+
+
+def test_polish_returns_nan_for_a_basis_with_equal_columns():
+    """A factor whose basis repeats a column (max |VᵀV - I| about 1) leaves
+    the polish as NaN, and only that factor; the others come back
+    orthonormal."""
+    rng = np.random.default_rng(3)
+    V = torch.as_tensor(np.linalg.qr(rng.standard_normal((3, 64, 64)))[0], dtype=torch.float32)
+    V[1, :, 5] = V[1, :, 6]
+    out = te._orthonormalize(V)
+    assert bool(out[1].isnan().all())
+    assert bool(out[[0, 2]].isfinite().all())
+    assert _orth(out[[0, 2]]) <= 1e-6
+
+
+def test_decompose_retries_the_factor_the_polish_refuses(monkeypatch):
+    """With the two-stage gate opened on the CPU for n >= 64, a float32
+    basis given two equal columns in one factor of a class before the
+    polish sends that factor, and only that one, through the `symeig`
+    retry: `SYMEIG_RETRIES` rises by one, the retried factor's pairs are
+    `symeig`'s, and every factor is reconstructed within float32's
+    tolerance."""
+    facs = [torch.as_tensor(_sym(s, 1, 80, psd=True)[0], dtype=torch.float32) for s in range(3)]
+    H = Kron([(facs[0], facs[1]), (facs[2],)])  # one class of three 80 x 80 factors
+    real = te._orthonormalize
+
+    def duplicate_in_second(V):
+        V = V.clone()
+        V[1, :, 7] = V[1, :, 8]
+        return real(V)
+
+    monkeypatch.setattr(matrix, "_use_ts", lambda stack: stack.shape[-1] >= 64)
+    monkeypatch.setattr(te, "_orthonormalize", duplicate_in_second)
+    before = matrix.SYMEIG_RETRIES
+    dec = H.decompose()
+    assert matrix.SYMEIG_RETRIES == before + 1
+    l_ret, Q_ret = symeig(facs[1])
+    torch.testing.assert_close(dec.eigenvalues[0][1], l_ret, atol=0, rtol=0)
+    torch.testing.assert_close(dec.eigenvectors[0][1], Q_ret, atol=0, rtol=0)
+    for Qs, ls, F in zip(dec.eigenvectors, dec.eigenvalues, H.kfacs):
+        for Q, l, M in zip(Qs, ls, F):
+            assert bool(Q.isfinite().all())
+            scale = float(M.abs().max())
+            torch.testing.assert_close(Q @ torch.diag(l) @ Q.T, M, atol=1e-5 * scale, rtol=0)
 
 
 def _check_secular_solve(args, out):

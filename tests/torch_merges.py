@@ -1,7 +1,8 @@
 """Stage-2 merges with deflation of every kind and the secular solve's
 arguments for them, for the tests of the solve on the CPU
 (`test_torch_tridiag_eig.py`) and on the card (`test_torch_cuda_kernels.py`)
-and `chip_smoke.py`'s `secular` phase. It imports no JAX."""
+and `chip_smoke.py`'s `secular` phase; and the Householder-QR polish that
+both test files hold stage 2's float32 polish to. It imports no JAX."""
 
 import numpy as np
 import torch
@@ -91,3 +92,11 @@ def secular_against_plain(args, out, plain):
     # a NaN (a root left unwritten, say) reads as infinitely far
     worst = float(torch.where(rel.isnan(), torch.inf, rel).max()) if rel.numel() else 0.0
     return worst, stray
+
+
+def qr_polish(V):
+    """The Householder-QR polish stage 2 ran before its Newton-Schulz step:
+    QR of the columns in descending-eigenvalue order, signs kept."""
+    Q, R = torch.linalg.qr(V.flip(-1))
+    sign = torch.where(torch.diagonal(R, dim1=-2, dim2=-1) < 0, -1.0, 1.0).to(V.dtype)
+    return (Q * sign.unsqueeze(-2)).flip(-1)
